@@ -1,0 +1,39 @@
+// Shared helpers of the wind-tunnel kernels.
+//
+// Fields are padded (D+2, H+2, W+2) float32 arrays, z-major with x fastest.
+// Every C entry point launches on the stream it is given, never
+// synchronises, and returns cudaGetLastError() so that the Python wrapper
+// can raise on a refused launch.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fst {
+
+// Ghost-face sign of field `field` along `axis` (0 = x, 1 = y, 2 = z),
+// packed by the wrapper: bit 3*field+axis set means "mirror negated".
+__device__ __forceinline__ float face_sign(int neg_mask, int field, int axis) {
+  return ((neg_mask >> (3 * field + axis)) & 1) ? -1.0f : 1.0f;
+}
+
+// setBounds faces owned by interior cell (z, y, x) at flat index i, which
+// has just been given value u: each ghost face cell is the mirror of
+// exactly one edge cell, so the thread that writes the edge cell writes its
+// mirrors (x+ is always an outflow copy). Edges and corners are untouched.
+__device__ __forceinline__ void write_faces(float* v, long i, long sy, long sz,
+                                            int z, int y, int x, int D, int H,
+                                            int W, float u, int neg_mask,
+                                            int field) {
+  if (x == 1) v[i - 1] = __fmul_rn(face_sign(neg_mask, field, 0), u);
+  if (x == W) v[i + 1] = u;
+  if (y == 1) v[i - sy] = __fmul_rn(face_sign(neg_mask, field, 1), u);
+  if (y == H) v[i + sy] = __fmul_rn(face_sign(neg_mask, field, 1), u);
+  if (z == 1) v[i - sz] = __fmul_rn(face_sign(neg_mask, field, 2), u);
+  if (z == D) v[i + sz] = __fmul_rn(face_sign(neg_mask, field, 2), u);
+}
+
+inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+inline unsigned cdiv(long n, long d) { return static_cast<unsigned>((n + d - 1) / d); }
+
+}  // namespace fst

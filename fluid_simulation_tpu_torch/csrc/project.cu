@@ -1,0 +1,119 @@
+// Pressure projection of an empty scene: divergence, then the Poisson
+// sweeps (rbgs.cu's half-sweep with a=1, c=6 on a zeroed p), then gradient
+// subtraction with the velocity ghost faces fused in.
+//
+// Replaces fluid_simulation_tpu/kernels/project_pallas.py::pallas_project_empty
+// (_make_project_kernel), which ran the whole projection in one kernel with
+// the three velocities and p resident in TPU on-chip memory.
+//
+// Design. Blocks cannot share a field across a grid-wide barrier without a
+// cooperative launch, so the projection is 2 + 2*acc launches: divergence,
+// the half-sweeps, and gradient-plus-faces. Neighbour validity of an empty
+// scene is an in-bounds test, kept as the TPU kernel's selects
+// (project_pallas.py:85-96, :138-154): an out-of-bounds neighbour
+// contributes 0 to the divergence, and the gradient is central /2h, one-sided
+// /h, or 0. p starts at 0 everywhere, ghosts included, so the solve reads
+// zero ghosts on its first sweep, like the reference. The velocity faces use
+// each component's own signs (project_pallas.py:53-62) and are written by
+// the thread that updates the edge cell, as in rbgs.cu.
+//
+// What bounds it on the H100: memory traffic and launch latency. Divergence
+// and gradient each touch the three velocities and p once; at 128x64x64 all
+// of it fits the 50 MB L2, and the 32 launches per projection make launch
+// overhead a large share.
+//
+// Numerics: every operation is rounded on its own, in the plain version's
+// order, so the result equals the plain torch projection bit for bit.
+
+#include "common.cuh"
+
+namespace {
+
+__global__ void divergence_kernel(const float* __restrict__ vx,
+                                  const float* __restrict__ vy,
+                                  const float* __restrict__ vz,
+                                  float* __restrict__ rhs, int D, int H,
+                                  int W, float neg_half_h) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
+  const int z = blockIdx.z + 1;
+  if (x > W || y > H) return;
+  const long sy = W + 2;
+  const long sz = static_cast<long>(H + 2) * (W + 2);
+  const long i = z * sz + y * sy + x;
+  float d = __fsub_rn(x < W ? vx[i + 1] : 0.0f, x > 1 ? vx[i - 1] : 0.0f);
+  d = __fadd_rn(d, y < H ? vy[i + sy] : 0.0f);
+  d = __fsub_rn(d, y > 1 ? vy[i - sy] : 0.0f);
+  d = __fadd_rn(d, z < D ? vz[i + sz] : 0.0f);
+  d = __fsub_rn(d, z > 1 ? vz[i - sz] : 0.0f);
+  rhs[i] = __fmul_rn(neg_half_h, d);
+}
+
+// central where both neighbours are in the interior, one-sided where one
+// is, zero where none is (simulation.cpp:322-357)
+__device__ __forceinline__ float gradient(bool has_p, bool has_m, float pp,
+                                          float pm, float pi, float inv_2h,
+                                          float inv_h) {
+  if (has_p && has_m) return __fmul_rn(__fsub_rn(pp, pm), inv_2h);
+  if (has_p) return __fmul_rn(__fsub_rn(pp, pi), inv_h);
+  if (has_m) return __fmul_rn(__fsub_rn(pi, pm), inv_h);
+  return 0.0f;
+}
+
+__global__ void grad_faces_kernel(float* vx, float* vy, float* vz,
+                                  const float* __restrict__ p, int D, int H,
+                                  int W, float inv_h, float inv_2h,
+                                  int neg_mask) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
+  const int z = blockIdx.z + 1;
+  if (x > W || y > H) return;
+  const long sy = W + 2;
+  const long sz = static_cast<long>(H + 2) * (W + 2);
+  const long i = z * sz + y * sy + x;
+  const float pi = p[i];
+  // out-of-interior neighbours are ghost cells of p: in memory, never used
+  const float gx = gradient(x < W, x > 1, p[i + 1], p[i - 1], pi, inv_2h, inv_h);
+  const float gy = gradient(y < H, y > 1, p[i + sy], p[i - sy], pi, inv_2h, inv_h);
+  const float gz = gradient(z < D, z > 1, p[i + sz], p[i - sz], pi, inv_2h, inv_h);
+  const float ux = __fsub_rn(vx[i], gx);
+  const float uy = __fsub_rn(vy[i], gy);
+  const float uz = __fsub_rn(vz[i], gz);
+  vx[i] = ux;
+  vy[i] = uy;
+  vz[i] = uz;
+  fst::write_faces(vx, i, sy, sz, z, y, x, D, H, W, ux, neg_mask, 0);
+  fst::write_faces(vy, i, sy, sz, z, y, x, D, H, W, uy, neg_mask, 1);
+  fst::write_faces(vz, i, sy, sz, z, y, x, D, H, W, uz, neg_mask, 2);
+}
+
+}  // namespace
+
+extern "C" {
+
+// rhs interior = -0.5*h * divergence of (vx, vy, vz); rhs ghosts untouched.
+int fst_divergence(const void* vx, const void* vy, const void* vz, void* rhs,
+                   int D, int H, int W, float neg_half_h, void* stream) {
+  const dim3 block(32, 8, 1);
+  const dim3 grid(fst::cdiv(W, block.x), fst::cdiv(H, block.y), D);
+  divergence_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vx), static_cast<const float*>(vy),
+      static_cast<const float*>(vz), static_cast<float*>(rhs), D, H, W,
+      neg_half_h);
+  return fst::launch_status();
+}
+
+// v -= grad p on the interior of each component, then its ghost faces.
+int fst_grad_faces(void* vx, void* vy, void* vz, const void* p, int D, int H,
+                   int W, float inv_h, float inv_2h, int neg_mask,
+                   void* stream) {
+  const dim3 block(32, 8, 1);
+  const dim3 grid(fst::cdiv(W, block.x), fst::cdiv(H, block.y), D);
+  grad_faces_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(vx), static_cast<float*>(vy),
+      static_cast<float*>(vz), static_cast<const float*>(p), D, H, W, inv_h,
+      inv_2h, neg_mask);
+  return fst::launch_status();
+}
+
+}  // extern "C"

@@ -1,0 +1,164 @@
+"""Build, load and call the CUDA kernels.
+
+The sources in ``fluid_simulation_tpu_torch/csrc`` compile with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``. The build happens at first use, into
+``<checkout>/build/fst_kernels/<hash>/``, keyed on a hash of the sources
+and flags, so a fresh checkout builds itself and an edited source rebuilds.
+Importing this module needs neither ``nvcc`` nor a card.
+
+``-fmad=false`` keeps every ``a*b+c`` as two roundings, as the plain torch
+versions compute it; the sources also spell the critical expressions with
+``__fmul_rn``/``__fadd_rn``, so each kernel matches its plain version bit
+for bit on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "fst_kernels"
+LIB_NAME = "libfst_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: each launches on the given stream and returns
+# cudaGetLastError() as an int
+SIGNATURES = {
+    "fst_rbgs_half": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    "fst_divergence": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "fst_grad_faces": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "fst_lerp_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _F, _F, _P),
+    "fst_pad_bounds": (_P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists;
+    returns its path. The compiler's report (registers, spills) is kept in
+    ``nvcc.log`` beside it."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
+                                     delete=False) as tmp:
+        tmp_path = Path(tmp.name)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path), *cu],
+                              capture_output=True, text=True)
+        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp_path, lib)   # atomic: concurrent builders agree
+    finally:
+        tmp_path.unlink(missing_ok=True)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call, then cached)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    lib.fst_error_string.argtypes = [ctypes.c_int]
+    lib.fst_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def call(name: str, *args) -> None:
+    """Launch C entry point ``name``; raise if the launch reported an error."""
+    lib = library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.fst_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True when ``t`` lives on a CUDA device, so its kernel must launch."""
+    return t.device.type == "cuda"
+
+
+def check_operands(name: str, tensors, shapes=None) -> None:
+    """Raise unless every operand is a contiguous float32 tensor on the card
+    (one device), with the expected shape where ``shapes`` gives one."""
+    dev = tensors[0].device
+    for i, t in enumerate(tensors):
+        if not on_card(t) or t.device != dev:
+            raise ValueError(f"{name}: operand {i} on {t.device}, expected "
+                             f"the card ({dev})")
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{name}: {t.dtype} is not ported to the card yet (ROADMAP "
+                f"A11); only float32 kernels exist")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand {i} is not contiguous")
+        if shapes is not None and shapes[i] is not None \
+                and tuple(t.shape) != tuple(shapes[i]):
+            raise ValueError(f"{name}: operand {i} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shapes[i])}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def neg_mask(signs_per_field) -> int:
+    """Pack ghost-face signs: bit ``3*field + axis`` (axis 0 = x, 1 = y,
+    2 = z) is set where that face mirrors negated."""
+    if len(signs_per_field) > 10:
+        raise ValueError("at most 10 fields fit a 32-bit sign mask")
+    m = 0
+    for i, signs in enumerate(signs_per_field):
+        for axis, s in enumerate(signs):
+            if s < 0:
+                m |= 1 << (3 * i + axis)
+    return m

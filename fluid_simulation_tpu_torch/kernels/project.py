@@ -1,0 +1,108 @@
+"""Kernel 2: the pressure projection of an empty scene (``csrc/project.cu`` plus
+``csrc/rbgs.cu``'s half-sweep) and its plain torch version.
+
+Port of ``fluid_simulation_tpu/kernels/project_pallas.py::pallas_project_empty``:
+divergence scaled by ``-0.5h``, ``p = 0``, ``acc`` red-black sweeps with
+``a=1, c=6``, central/one-sided gradient subtraction, velocity faces.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fluid_simulation_tpu_torch.kernels import LAUNCHES, _build
+from fluid_simulation_tpu_torch.ops.bounds import face_signs, write_faces_
+from fluid_simulation_tpu_torch.ops.linsolve import as_scalar, relax
+from fluid_simulation_tpu_torch.ops.project import grid_h
+
+
+def _coefficients(shape):
+    D, H, W = (n - 2 for n in shape)
+    h = np.float32(grid_h(W, H, D))
+    return (np.float32(-0.5) * h, np.float32(1.0) / h,
+            np.float32(1.0) / (np.float32(2.0) * h))
+
+
+def project_empty_plain(vx, vy, vz, acc: int = 15,
+                        wall_mode: str = "reference"):
+    """The projection in plain torch, with the in-bounds selects of the TPU
+    kernel (equal in value to ``ops.project.project`` on an empty scene,
+    whose 0/1 mask products differ at most in the sign of a zero)."""
+    dtype, dev = vx.dtype, vx.device
+    D, H, W = (n - 2 for n in vx.shape)
+    nhh, inv_h, inv_2h = (as_scalar(x, dtype)
+                          for x in _coefficients(vx.shape))
+    ix = torch.arange(W, device=dev).reshape(1, 1, W)
+    iy = torch.arange(H, device=dev).reshape(1, H, 1)
+    iz = torch.arange(D, device=dev).reshape(D, 1, 1)
+    xp, xm, yp, ym, zp, zm = (ix < W - 1, ix > 0, iy < H - 1, iy > 0,
+                              iz < D - 1, iz > 0)
+
+    div_val = (torch.where(xp, vx[1:-1, 1:-1, 2:], 0.0)
+               - torch.where(xm, vx[1:-1, 1:-1, :-2], 0.0)
+               + torch.where(yp, vy[1:-1, 2:, 1:-1], 0.0)
+               - torch.where(ym, vy[1:-1, :-2, 1:-1], 0.0)
+               + torch.where(zp, vz[2:, 1:-1, 1:-1], 0.0)
+               - torch.where(zm, vz[:-2, 1:-1, 1:-1], 0.0))
+    rhs = torch.zeros_like(vx)
+    rhs[1:-1, 1:-1, 1:-1] = nhh * div_val
+    p = relax(0, torch.zeros_like(vx), rhs, 1.0, 6.0, None, acc=acc,
+              solver="rbgs", wall_mode=wall_mode)
+
+    p_i = p[1:-1, 1:-1, 1:-1]
+
+    def grad(has_p, has_m, p_p, p_m):
+        return torch.where(
+            has_p & has_m, (p_p - p_m) * inv_2h,
+            torch.where(has_p, (p_p - p_i) * inv_h,
+                        torch.where(has_m, (p_i - p_m) * inv_h, 0.0)))
+
+    grads = (grad(xp, xm, p[1:-1, 1:-1, 2:], p[1:-1, 1:-1, :-2]),
+             grad(yp, ym, p[1:-1, 2:, 1:-1], p[1:-1, :-2, 1:-1]),
+             grad(zp, zm, p[2:, 1:-1, 1:-1], p[:-2, 1:-1, 1:-1]))
+    outs = []
+    for b, v, g in zip((1, 2, 3), (vx, vy, vz), grads):
+        v = v.clone()
+        v[1:-1, 1:-1, 1:-1] = v[1:-1, 1:-1, 1:-1] - g
+        outs.append(write_faces_(v, b, wall_mode))
+    return tuple(outs)
+
+
+def project_empty(vx, vy, vz, acc: int = 15, wall_mode: str = "reference"):
+    """Project padded (vx, vy, vz) of an empty scene; returns three new
+    tensors. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernels or raises."""
+    if not _build.on_card(vx):
+        return project_empty_plain(vx, vy, vz, acc, wall_mode)
+    _build.check_operands("project_empty", (vx, vy, vz),
+                          (None, vx.shape, vx.shape))
+    if vx.ndim != 3 or min(vx.shape) < 3:
+        raise ValueError(f"project_empty: bad padded shape {tuple(vx.shape)}")
+    outs = tuple(v.clone() for v in (vx, vy, vz))
+    rhs = torch.empty_like(vx)     # only its interior is written and read
+    p = torch.zeros_like(vx)
+    _launch(*outs, rhs, p, acc, wall_mode)
+    LAUNCHES["project_empty"] += 1
+    return outs
+
+
+def _launch(vx, vy, vz, rhs, p, acc, wall_mode):
+    """Divergence, 2*acc half-sweeps on ``p``, gradient + faces, in place on
+    the wrapper's own buffers."""
+    D, H, W = (n - 2 for n in vx.shape)
+    nhh, inv_h, inv_2h = (float(x) for x in _coefficients(vx.shape))
+    crec = float(np.float32(1.0) / np.float32(6.0))
+    vmask = _build.neg_mask([face_signs(b, wall_mode) for b in (1, 2, 3)])
+    pmask = _build.neg_mask([face_signs(0, wall_mode)])
+    ptr = _build.ptr
+    with torch.cuda.device(vx.device):
+        stream = _build.stream(vx)
+        _build.call("fst_divergence", ptr(vx), ptr(vy), ptr(vz), ptr(rhs),
+                    D, H, W, nhh, stream)
+        for _ in range(acc):
+            for color in (0, 1):
+                _build.call("fst_rbgs_half", ptr(p), ptr(rhs), D, H, W, 1.0,
+                            crec, color, pmask, stream)
+        _build.call("fst_grad_faces", ptr(vx), ptr(vy), ptr(vz), ptr(p),
+                    D, H, W, inv_h, inv_2h, vmask, stream)

@@ -1,0 +1,327 @@
+"""The wind-tunnel model (``fluid_simulation_tpu/models/windtunnel.py``).
+
+Time-step composition mirrors ``Simulation::run`` + ``Simulation::step``
+(simulation.cpp:49-150):
+
+  per step (run loop, :63-71):  inlet density += 0.001 on the x=1 plane;
+                                buffer = dens;            then step():
+  step (:96-150):               inlet velocity (speed,0,0) on the x=1 plane;
+                                v_prev = v  (pre-diffusion save, :107-110);
+                                diffuse vx,vy,vz; project;
+                                advect vx,vy,vz from v_prev; project again;
+                                density advect from buffer.
+
+The density diffusion of the reference is dead (advection rewrites every
+cell from the pre-diffusion ``buffer``), so it is not computed.
+
+Devices. On the CPU every stage is plain torch. On a CUDA device with
+``use_pallas`` the solves, projections, split advection and padding run the
+hand-written kernels (``kernels/``), and a configuration whose kernels are
+not ported yet raises ``NotImplementedError`` instead of running plain
+torch. With ``use_pallas=False`` the step is plain torch on any device.
+
+The step is pure: it returns new tensors and leaves its inputs unchanged
+(the pre-diffusion save ``pvx`` and the post-inlet ``buffer`` are read again
+after the solves, so no stage may write into its inputs).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fluid_simulation_tpu_torch.config import SimParams
+from fluid_simulation_tpu_torch.kernels import _build
+from fluid_simulation_tpu_torch.kernels.advect_split import (
+    advect_split, advect_split_plain)
+from fluid_simulation_tpu_torch.kernels.bounds import (
+    pad_bounds, pad_bounds_plain)
+from fluid_simulation_tpu_torch.kernels.project import project_empty
+from fluid_simulation_tpu_torch.ops.advect import (
+    advect, backtrace, trilinear_gather)
+from fluid_simulation_tpu_torch.ops.linsolve import as_scalar, diffuse
+from fluid_simulation_tpu_torch.ops.project import divergence, grid_h, project
+from fluid_simulation_tpu_torch.ops.vorticity import apply_confinement
+from fluid_simulation_tpu_torch.scene.masks import SceneMasks, build_masks
+
+
+class FluidState(NamedTuple):
+    """Padded (D+2, H+2, W+2) fields, the reference's member arrays
+    (simulation.h:16-27)."""
+
+    vx: torch.Tensor
+    vy: torch.Tensor
+    vz: torch.Tensor
+    dens: torch.Tensor
+
+
+class StepStats(NamedTuple):
+    """Per-step scalars (NaN where the matching SimParams flag is off)."""
+
+    density_sum: torch.Tensor
+    max_divergence: torch.Tensor
+
+
+def _dtype(params: SimParams) -> torch.dtype:
+    return torch.bfloat16 if params.dtype == "bfloat16" else torch.float32
+
+
+def init_state(params: SimParams, device="cpu") -> FluidState:
+    """All-zero fields, like the ctor fill (simulation.cpp:38-43)."""
+    z = [torch.zeros(params.padded_shape, dtype=_dtype(params), device=device)
+         for _ in range(4)]
+    return FluidState(*z)
+
+
+def unported_reason(p: SimParams) -> Optional[str]:
+    """What in ``p`` has no kernel on the card yet, with its ROADMAP item,
+    or None when the whole step has one."""
+    if not p.empty_scene:
+        return "obstacle scenes (ROADMAP B5-B7)"
+    if p.vorticity:
+        return "vorticity confinement (ROADMAP A8, B8)"
+    if p.dtype == "bfloat16":
+        return "dtype='bfloat16' (ROADMAP A11)"
+    if p.batched:
+        return "batched design sweeps (ROADMAP A12)"
+    if p.advect_window > 0:
+        return "advect_window > 0 (ROADMAP B19)"
+    return None
+
+
+def _require_ported(p: SimParams, t: torch.Tensor) -> None:
+    if p.use_pallas and _build.on_card(t):
+        reason = unported_reason(p)
+        if reason:
+            raise NotImplementedError(
+                f"{reason}: not ported to the card yet; use_pallas=False "
+                f"runs the plain torch step")
+
+
+def _apply_inlets(state: FluidState,
+                  params: SimParams) -> Tuple[FluidState, torch.Tensor]:
+    """Inlet density (simulation.cpp:64-67) and inlet velocity
+    (simulation.cpp:102-105) on the x=1 interior plane; returns the new
+    state and the post-inlet density (``buffer = dens``, simulation.cpp:70)."""
+    D2, H2, W2 = state.dens.shape
+    dev = state.dens.device
+    zi = torch.arange(D2, device=dev).reshape(D2, 1, 1)
+    yi = torch.arange(H2, device=dev).reshape(1, H2, 1)
+    xi = torch.arange(W2, device=dev).reshape(1, 1, W2)
+    m = ((xi == 1) & (zi >= 1) & (zi <= D2 - 2) & (yi >= 1) & (yi <= H2 - 2))
+    dt = state.dens.dtype
+    dens = torch.where(m, state.dens + as_scalar(params.inlet_density, dt),
+                       state.dens)
+    vx = torch.where(m, as_scalar(params.speed, dt), state.vx)
+    vy = torch.where(m, 0.0, state.vy)
+    vz = torch.where(m, 0.0, state.vz)
+    return FluidState(vx, vy, vz, dens), dens
+
+
+def _pad_bounds_tail(smp, bs, masks: SceneMasks, p: SimParams):
+    """Padded fields + setBounds from advected interior samples ``smp``
+    ((len(bs), D, H, W) or (D, H, W)): kernel 4 with ``use_pallas``, its
+    plain version otherwise."""
+    kw = {}
+    if not p.empty_scene:
+        keep = masks.keep_vel if bs[0] in (1, 2, 3) else masks.keep_scalar
+        kw = dict(fluid_i=masks.fluid_i, keep_i=keep[1:-1, 1:-1, 1:-1])
+    fn = pad_bounds if p.use_pallas else pad_bounds_plain
+    return fn(smp, bs, p.wall_mode, **kw)
+
+
+def _project_dispatch(vx, vy, vz, masks: SceneMasks, p: SimParams):
+    """Projection: kernel 2 for empty scenes with rbgs and ``use_pallas``,
+    the composable ops otherwise; returns (vx, vy, vz)."""
+    if p.empty_scene and p.use_pallas and p.solver == "rbgs":
+        return project_empty(vx, vy, vz, acc=p.acc, wall_mode=p.wall_mode)
+    out = project(vx, vy, vz, masks, acc=p.acc, solver=p.solver,
+                  wall_mode=p.wall_mode, use_pallas=p.use_pallas,
+                  empty_scene=p.empty_scene)
+    return out[0], out[1], out[2]
+
+
+def _advect_split(prev, vx, vy, vz, p: SimParams):
+    fn = advect_split if p.use_pallas else advect_split_plain
+    return fn(prev, vx, vy, vz, p.dt)
+
+
+def simulation_step(state: FluidState, masks: SceneMasks,
+                    params: SimParams) -> Tuple[FluidState, StepStats]:
+    """Advance one full time step. Pure: returns new tensors."""
+    p = params
+    _require_ported(p, state.vx)
+    kw = dict(acc=p.acc, solver=p.solver, wall_mode=p.wall_mode,
+              use_pallas=p.use_pallas, empty_scene=p.empty_scene)
+
+    state, buffer = _apply_inlets(state, p)
+    vx, vy, vz, dens = state
+    pvx, pvy, pvz = vx, vy, vz   # pre-diffusion save (simulation.cpp:107-110)
+
+    vel_diff = p.visc if p.use_visc_for_velocity else p.diff
+    vx, vy, vz = (diffuse(b, v, pv, masks, p.dt, vel_diff, **kw)
+                  for b, v, pv in ((1, vx, pvx), (2, vy, pvy), (3, vz, pvz)))
+    vx, vy, vz = _project_dispatch(vx, vy, vz, masks, p)
+
+    if p.mode == "compat":
+        # sequential component advection (simulation.cpp:125-127)
+        vx2 = advect(1, pvx, vx, vy, vz, masks, p.dt, p.wall_mode,
+                     p.empty_scene)
+        vy2 = advect(2, pvy, vx2, vy, vz, masks, p.dt, p.wall_mode,
+                     p.empty_scene)
+        vz2 = advect(3, pvz, vx2, vy2, vz, masks, p.dt, p.wall_mode,
+                     p.empty_scene)
+        vx, vy, vz = vx2, vy2, vz2
+    elif p.mode == "fast":
+        # one shared backtrace through the projected field, three gathers
+        xb, yb, zb = backtrace(
+            vx[1:-1, 1:-1, 1:-1], vy[1:-1, 1:-1, 1:-1], vz[1:-1, 1:-1, 1:-1],
+            p.dt, p.width, p.height, p.depth, vx.dtype)
+        smp = torch.stack([trilinear_gather(prev, xb, yb, zb)
+                           for prev in (pvx, pvy, pvz)])
+        vx, vy, vz = _pad_bounds_tail(smp, (1, 2, 3), masks, p)
+    elif p.mode == "split":
+        # the three components share one pass pipeline (one coordinate per
+        # cell and pass)
+        smp = _advect_split(torch.stack([pvx, pvy, pvz]), vx, vy, vz, p)
+        vx, vy, vz = _pad_bounds_tail(smp, (1, 2, 3), masks, p)
+    else:
+        raise ValueError(f"unknown mode {p.mode!r}")
+
+    if p.vorticity:
+        vx, vy, vz = apply_confinement(vx, vy, vz, masks, p.vorticity, p.dt)
+
+    vx, vy, vz = _project_dispatch(vx, vy, vz, masks, p)
+
+    if p.mode == "split":
+        dens, = _pad_bounds_tail(_advect_split(buffer, vx, vy, vz, p), (0,),
+                                 masks, p)
+    else:
+        dens = advect(0, buffer, vx, vy, vz, masks, p.dt, p.wall_mode,
+                      p.empty_scene)
+
+    nan = torch.tensor(float("nan"), dtype=torch.float32, device=vx.device)
+    if p.div_stats:
+        h = grid_h(p.width, p.height, p.depth)
+        max_div = divergence(vx, vy, vz, masks, h).abs().max().to(
+            torch.float32)
+    else:
+        max_div = nan
+    density_sum = torch.sum(dens, dtype=torch.float32) if p.step_stats else nan
+    return (FluidState(vx, vy, vz, dens),
+            StepStats(density_sum=density_sum, max_divergence=max_div))
+
+
+def simulate(state: FluidState, masks: SceneMasks, params: SimParams,
+             steps: int, record: bool = False):
+    """Run ``steps`` steps. Returns ``(final_state, ys)``: ``ys`` is the
+    StepStats stacked over steps, or with ``record=True`` the pair
+    ``(stats, states)`` with every step's fields stacked on the device
+    (the analog of the reference's per-step dump, simulation.cpp:143-147)."""
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    stats, states = [], []
+    for _ in range(steps):
+        state, st = simulation_step(state, masks, params)
+        stats.append(st)
+        if record:
+            states.append(state)
+    stacked = StepStats(*(torch.stack(x) for x in zip(*stats)))
+    if not record:
+        return state, stacked
+    return state, (stacked, FluidState(*(torch.stack(x)
+                                         for x in zip(*states))))
+
+
+class WindTunnel:
+    """Params + scene masks + state on one device: the equivalent of
+    constructing ``Simulation`` and calling ``run()``
+    (simulation.cpp:429-451)."""
+
+    def __init__(self, params: SimParams = SimParams(),
+                 obstacles: Optional[np.ndarray] = None, device="cpu"):
+        self.device = torch.device(device)
+        if obstacles is None:
+            obstacles = np.zeros(params.padded_shape, np.float32)
+        if tuple(obstacles.shape) != params.padded_shape:
+            raise ValueError(f"obstacle shape {obstacles.shape} != padded "
+                             f"{params.padded_shape}")
+        self.obstacles = np.array(obstacles, np.float32)
+        # empty scenes skip obstacle masking (exact identity); derived from
+        # the obstacle field, and an explicit empty_scene=True with solids
+        # is rejected (it would silently give wrong physics)
+        has_solids = bool((self.obstacles >= 0.5).any())
+        if params.empty_scene and has_solids:
+            raise ValueError(
+                "SimParams(empty_scene=True) with a non-empty obstacle "
+                "field: empty_scene skips all obstacle masking and must only "
+                "be set for scenes without solids")
+        self.params = params.replace(empty_scene=not has_solids)
+        self.masks = build_masks(self.obstacles, dtype=_dtype(self.params),
+                                 device=self.device)
+        self.state = init_state(self.params, self.device)
+        _require_ported(self.params, self.state.vx)
+
+    def reset(self) -> FluidState:
+        self.state = init_state(self.params, self.device)
+        return self.state
+
+    def step(self) -> StepStats:
+        self.state, stats = simulation_step(self.state, self.masks,
+                                            self.params)
+        return stats
+
+    def simulate(self, steps: int, record: bool = False):
+        self.state, ys = simulate(self.state, self.masks, self.params,
+                                  steps=steps, record=record)
+        return self.state, ys
+
+    # -- single-cell edit API (simulation.cpp:155-178) --------------------
+
+    def add_obstacle(self, x: int, y: int, z: int):
+        """Mark one interior cell solid (Simulation::addObstacle)."""
+        self._check_cell(x, y, z)
+        self.obstacles[z, y, x] = 1.0
+        self.masks = build_masks(self.obstacles, dtype=_dtype(self.params),
+                                 device=self.device)
+        self.params = self.params.replace(empty_scene=False)
+
+    def add_density(self, x: int, y: int, z: int, amount: float):
+        """Add density to one cell (Simulation::addDensity)."""
+        self._check_cell(x, y, z)
+        dens = self.state.dens.clone()
+        dens[z, y, x] += as_scalar(amount, dens.dtype)
+        self.state = self.state._replace(dens=dens)
+
+    def set_velocity(self, x: int, y: int, z: int,
+                     vx: float, vy: float, vz: float):
+        """Set the velocity of one cell (Simulation::setVelocity)."""
+        self._check_cell(x, y, z)
+        new = {}
+        for key, val in zip(("vx", "vy", "vz"), (vx, vy, vz)):
+            f = getattr(self.state, key).clone()
+            f[z, y, x] = as_scalar(val, f.dtype)
+            new[key] = f
+        self.state = self.state._replace(**new)
+
+    def _check_cell(self, x, y, z):
+        p = self.params
+        if not (1 <= x <= p.width and 1 <= y <= p.height
+                and 1 <= z <= p.depth):
+            raise ValueError(
+                f"cell ({x},{y},{z}) outside interior "
+                f"1..{p.width} x 1..{p.height} x 1..{p.depth}")
+
+    def density_sum(self) -> float:
+        return float(torch.sum(self.state.dens, dtype=torch.float32))
+
+    def field_ranges(self):
+        """Final min/max statistics, like simulation.cpp:81-90."""
+        s = self.state
+        r = torch.stack([s.dens.min(), s.dens.max(), s.vx.min(), s.vx.max(),
+                         s.vy.min(), s.vy.max(), s.vz.min(),
+                         s.vz.max()]).to(torch.float32).tolist()
+        return {"density": (r[0], r[1]), "vx": (r[2], r[3]),
+                "vy": (r[4], r[5]), "vz": (r[6], r[7])}

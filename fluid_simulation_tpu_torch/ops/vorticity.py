@@ -1,0 +1,56 @@
+"""Vorticity confinement (Fedkiw, Stam & Jensen 2001)
+(``fluid_simulation_tpu/ops/vorticity.py``).
+
+The force ``f = eps * dt * (N x omega)`` re-injects the small swirls that
+semi-Lagrangian advection smears. Central differences on the interior, zero
+in and next to solids. Plain torch; the card's kernel is still to be ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fluid_simulation_tpu_torch.ops.linsolve import as_scalar
+from fluid_simulation_tpu_torch.scene.masks import SceneMasks
+
+
+def _central(f, axis):
+    """Central difference of a padded field over the interior (unit spacing)."""
+    if axis == 0:   # z
+        return 0.5 * (f[2:, 1:-1, 1:-1] - f[:-2, 1:-1, 1:-1])
+    if axis == 1:   # y
+        return 0.5 * (f[1:-1, 2:, 1:-1] - f[1:-1, :-2, 1:-1])
+    return 0.5 * (f[1:-1, 1:-1, 2:] - f[1:-1, 1:-1, :-2])  # x
+
+
+def confinement_force(vx, vy, vz, masks: SceneMasks, eps: float, dt: float):
+    """Return (fx, fy, fz) interior force fields scaled by dt."""
+    wx_i = _central(vz, 1) - _central(vy, 0)
+    wy_i = _central(vx, 0) - _central(vz, 2)
+    wz_i = _central(vy, 2) - _central(vx, 1)
+
+    mag = torch.zeros_like(vx)
+    mag[1:-1, 1:-1, 1:-1] = torch.sqrt(wx_i * wx_i + wy_i * wy_i
+                                       + wz_i * wz_i)
+    gx, gy, gz = _central(mag, 2), _central(mag, 1), _central(mag, 0)
+    norm = torch.sqrt(gx * gx + gy * gy + gz * gz) + as_scalar(1e-5, vx.dtype)
+    nx, ny, nz = gx / norm, gy / norm, gz / norm
+
+    keep = masks.keep_vel[1:-1, 1:-1, 1:-1]
+    s = as_scalar(np.float32(eps) * np.float32(dt), vx.dtype) * keep
+    return (s * (ny * wz_i - nz * wy_i), s * (nz * wx_i - nx * wz_i),
+            s * (nx * wy_i - ny * wx_i))
+
+
+def apply_confinement(vx, vy, vz, masks: SceneMasks, eps: float, dt: float):
+    """New (vx, vy, vz) with the confinement force added to the interior."""
+    if eps == 0.0:
+        return vx, vy, vz
+    outs = []
+    for v, f in zip((vx, vy, vz), confinement_force(vx, vy, vz, masks, eps,
+                                                    dt)):
+        v = v.clone()
+        v[1:-1, 1:-1, 1:-1] += f
+        outs.append(v)
+    return tuple(outs)
