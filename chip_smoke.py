@@ -10,7 +10,11 @@ final ``ok`` line):
    the build of the CUDA kernels from ``fluid_simulation_tpu_torch/csrc``;
 2. each kernel against its plain torch version on the card, at the
    128x64x64 flagship shapes and at an odd small shape, random inputs from
-   a NumPy seed: bitwise equality expected;
+   a NumPy seed: bitwise equality expected. The obstacle kernels take the
+   bench sphere's masks at 128x64x64 and a random 0/1 obstacle field at
+   13x7x5. Each kernel's time, its plain version's, and its bound (the
+   bytes it must move at 3.35 TB/s or its f32 operations at 67 TFLOP/s,
+   whichever is larger) at the flagship shapes;
 3. the split flagship: ``WindTunnel(SimParams(mode="split", ...),
    device="cuda").simulate(100)`` — finite, density > 0, divergence
    residual max < 20 and mean < 1 (bench.py's bounds), kernel launch
@@ -20,7 +24,15 @@ final ``ok`` line):
    reference's own print (density sum 14125.1 within 1.5 %, max 0.0505
    within 2 %), launch counts 3/2/0/0 per step;
 5. split at 256x128x128 for 10 steps, finite and within the residual bounds;
-6. ms/step of the kernel path and the plain path, timed with CUDA events.
+6. the bench's sphere (bench.py:224-226) in split for 100 steps and in
+   compat for 20, and the reference main()'s STL scene (the repo's
+   icosphere, rotated and translated as main() does, at scale 0.5) in split
+   for 100: the obstacle kernels' launch counts, the residual bounds, every
+   solid cell exactly 0, a density sum that differs from the empty run's,
+   and the kernel path equal to the plain path over 3 (compat: 2) steps;
+7. no-slip walls with vorticity 5.0 (bench.py:227-228) in split for 100
+   steps: launch counts, residual bounds, kernel path equal to plain;
+8. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 Needs torch with CUDA and ``nvcc`` (``CUDA_HOME`` or ``PATH``); imports no
 JAX.
@@ -39,6 +51,13 @@ SEED = 1234
 RESIDUAL_MAX, RESIDUAL_MEAN = 20.0, 1.0          # bench.py:114-115
 REF_SUM, REF_MAX = 14125.1, 0.0505               # simulation.cpp:73-90 print
 SUM_BAND, MAX_BAND = 0.015, 0.02                 # bench.py:194-195
+# one H100 SXM: HBM rate and f32 rate outside the tensor cores (NVIDIA's
+# data sheet, at the 700 W limit)
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+# the reference main()'s scene (SURVEY.md:123-128) with the repo's mesh at
+# scale 0.5, where it fits the 128x64x64 tunnel's cross-section
+STL_SCENE = dict(stl_path="tests/golden/icosphere_r10.stl", scale=0.5,
+                 rot_x=90, translate_x=-16, voxelizer="rasterize")
 
 KERNELS = {
     "rbgs_solve": ("fluid_simulation_tpu_torch/csrc/rbgs.cu",
@@ -49,7 +68,20 @@ KERNELS = {
                      "fluid_simulation_tpu/kernels/advect_pallas.py:611"),
     "pad_bounds": ("fluid_simulation_tpu_torch/csrc/pad_bounds.cu",
                    "fluid_simulation_tpu/kernels/bounds_pallas.py:257"),
+    # the apply_keep branch of the same pallas_call (_packed_body, :185)
+    "rbgs_solve_keep": ("fluid_simulation_tpu_torch/csrc/rbgs.cu",
+                        "fluid_simulation_tpu/kernels/linsolve_pallas.py:287"),
+    "project_masked": ("fluid_simulation_tpu_torch/csrc/project.cu",
+                       "fluid_simulation_tpu/kernels/project_pallas.py:323"),
+    "pad_bounds_masked": ("fluid_simulation_tpu_torch/csrc/pad_bounds.cu",
+                          "fluid_simulation_tpu/kernels/bounds_pallas.py:257"),
+    "confinement": ("fluid_simulation_tpu_torch/csrc/vorticity.cu",
+                    "fluid_simulation_tpu/kernels/vorticity_pallas.py:103"),
 }
+# f32 operations per interior cell of each kernel's arithmetic (per sweep
+# for the solves), for the operations side of the bound
+OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
+                "pad_bounds_masked": 2, "confinement": 53}
 
 
 def card_line() -> str:
@@ -68,6 +100,7 @@ class Smoke:
         self.torch = torch
         self.failures = []
         self.kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
+        self.empty_split_sum = None
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
@@ -116,6 +149,60 @@ class Smoke:
         print(f"   {name:14s} {label:34s} max|kernel-plain| = {err:.3g} "
               f"(bound 0: bitwise) {'ok' if ok else 'MISMATCH'}", flush=True)
         self.check(ok, f"{name} {label}: max abs err {err}")
+
+    def bound(self, name, tensors, ops):
+        """The least time the card could take for one call: the bytes of
+        its inputs and outputs ``tensors`` (each moved once) at the HBM
+        rate, or ``ops`` f32 operations at the f32 rate, the larger."""
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+        self.kern[name].update(
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None)   # no single PyTorch call computes it
+        print(f"   {name:14s} bound {max(t_bytes, t_ops) * 1e3:.6f} ms "
+              f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mflop)", flush=True)
+
+    def time_pair(self, name, kf, pf, reps):
+        ms, pms = self.event_ms(kf, reps), self.event_ms(pf, reps)
+        self.kern[name].update(ms=ms, plain_ms=pms)
+        print(f"   {name:14s} flagship shapes: kernel {ms:.4f} ms"
+              f", plain {pms:.4f} ms per call", flush=True)
+
+    def run_path(self, wt, steps, label, **nonzero):
+        """Drive ``wt`` for ``steps`` with the counts set to 0 just before
+        and read just after; they must equal ``nonzero`` per step (every
+        other counter 0). Each kernel's launches are taken from the first
+        path that runs it."""
+        torch = self.torch
+        from fluid_simulation_tpu_torch.kernels import LAUNCHES, reset_launches
+        reset_launches()
+        wt.simulate(steps)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        print(f"   launches over {steps} steps: {counts}", flush=True)
+        for name, n in counts.items():
+            if n:
+                self.kern[name].setdefault("launches", n)
+        want = {k: steps * nonzero.get(k, 0) for k in counts}
+        self.check(counts == want, f"{label}: launch counts {counts} != "
+                   f"{want}")
+
+    def kernel_vs_plain_steps(self, wt, steps):
+        """``steps`` more steps on the kernel path and on the plain path
+        from the same state; they must agree bit for bit."""
+        from fluid_simulation_tpu_torch.models.windtunnel import (
+            simulation_step)
+        kern = plain = wt.state
+        plain_p = wt.params.replace(use_pallas=False)
+        for _ in range(steps):
+            kern, _ = simulation_step(kern, wt.masks, wt.params)
+            plain, _ = simulation_step(plain, wt.masks, plain_p)
+        err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
+        print(f"   {steps} steps kernel path vs plain path: max abs diff "
+              f"{err:.3g} (bound 0: every kernel is bitwise to its plain "
+              f"version)", flush=True)
+        self.check(err == 0.0, f"kernel vs plain path differ by {err}")
 
     # -- phases -----------------------------------------------------------
 
@@ -172,43 +259,29 @@ class Smoke:
                                            ("project_empty", k2, p2, 20),
                                            ("advect_split", k3, p3, 50),
                                            ("pad_bounds", k4, p4, 50)):
-                    ms, pms = self.event_ms(kf, reps), self.event_ms(pf, reps)
-                    self.kern[name].update(ms=ms, plain_ms=pms)
-                    print(f"   {name:14s} flagship shapes: kernel {ms:.4f} ms"
-                          f", plain {pms:.4f} ms per call", flush=True)
+                    self.time_pair(name, kf, pf, reps)
+                n, D2, H2 = W * H * D, D + 2, H + 2
+                # the solve reads prev (g) at interior cells only
+                self.bound("rbgs_solve", (f, g[1:-1, 1:-1, 1:-1], f),
+                           15 * OPS_PER_CELL["rbgs_solve"] * n)
+                # divergence 7, sweeps 8 each, gradient and update 9
+                self.bound("project_empty", (*vel, *vel), (16 + 8 * 15) * n)
+                # per pass and output cell: coordinate 6, lerp 3 per field
+                lerp_ops = (6 + 3 * 3) * (D2 * H2 * W + D2 * H * W + n)
+                out3 = k3()
+                self.bound("advect_split", (stack, vx, vy, vz, out3),
+                           lerp_ops)
+                self.bound("pad_bounds", (smp3, *k4()), 0)
 
     def split_flagship(self):
-        torch = self.torch
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        from fluid_simulation_tpu_torch.kernels import LAUNCHES, reset_launches
-        from fluid_simulation_tpu_torch.models.windtunnel import (
-            simulation_step)
-
         wt = WindTunnel(SimParams(mode="split", div_stats=False,
                                   step_stats=False), device="cuda")
-        reset_launches()
-        wt.simulate(100)
-        torch.cuda.synchronize()
-        counts = dict(LAUNCHES)
-        print(f"   launches over 100 steps: {counts}", flush=True)
-        for name, n in counts.items():
-            self.kern[name]["launches"] = n
+        self.run_path(wt, 100, "split 3/2/2/2 per step", rbgs_solve=3,
+                      project_empty=2, advect_split=2, pad_bounds=2)
         self.check_state(wt, "split 128x64x64")
-        self.check(counts == {"rbgs_solve": 300, "project_empty": 200,
-                              "advect_split": 200, "pad_bounds": 200},
-                   f"split launch counts {counts} != 3/2/2/2 per step")
-
-        start = wt.state
-        kern, plain = start, start
-        plain_p = wt.params.replace(use_pallas=False)
-        for _ in range(3):
-            kern, _ = simulation_step(kern, wt.masks, wt.params)
-            plain, _ = simulation_step(plain, wt.masks, plain_p)
-        err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
-        print(f"   3 steps kernel path vs plain path: max abs diff {err:.3g}"
-              f" (bound 0: every kernel is bitwise to its plain version)",
-              flush=True)
-        self.check(err == 0.0, f"kernel vs plain path differ by {err}")
+        self.empty_split_sum = wt.density_sum()
+        self.kernel_vs_plain_steps(wt, 3)
 
     def check_state(self, wt, label):
         torch = self.torch
@@ -227,26 +300,17 @@ class Smoke:
                    f"{label}: residual max {dmax} mean {dmean}")
 
     def compat_parity(self):
-        torch = self.torch
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        from fluid_simulation_tpu_torch.kernels import LAUNCHES, reset_launches
-
         wt = WindTunnel(SimParams(div_stats=False, step_stats=False),
                         device="cuda")
-        reset_launches()
-        wt.simulate(100)
-        torch.cuda.synchronize()
-        counts = dict(LAUNCHES)
+        self.run_path(wt, 100, "compat 3/2/0/0 per step", rbgs_solve=3,
+                      project_empty=2)
         dsum = wt.density_sum()
         dmax = wt.field_ranges()["density"][1]
-        print(f"   launches over 100 steps: {counts}", flush=True)
         print(f"   density_sum={dsum:.6g} (ref {REF_SUM}, "
               f"{100 * (dsum - REF_SUM) / REF_SUM:+.3f} %), dens_max="
               f"{dmax:.6g} (ref {REF_MAX}, "
               f"{100 * (dmax - REF_MAX) / REF_MAX:+.3f} %)", flush=True)
-        self.check(counts == {"rbgs_solve": 300, "project_empty": 200,
-                              "advect_split": 0, "pad_bounds": 0},
-                   f"compat launch counts {counts} != 3/2/0/0 per step")
         self.check(abs(dsum - REF_SUM) / REF_SUM <= SUM_BAND,
                    f"density sum {dsum} outside 1.5 % of {REF_SUM}")
         self.check(abs(dmax - REF_MAX) / REF_MAX <= MAX_BAND,
@@ -260,17 +324,176 @@ class Smoke:
         wt.simulate(10)
         self.check_state(wt, "split 256x128x128, 10 steps")
 
+    def obstacle_kernels(self):
+        """K1 keep, K6, K4 masked and K10 against their plain versions: the
+        bench sphere's masks at 128x64x64, a random 0/1 obstacle field with
+        no-slip walls at 13x7x5."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels.bounds import (
+            pad_bounds, pad_bounds_plain)
+        from fluid_simulation_tpu_torch.kernels.linsolve import (
+            rbgs_solve, rbgs_solve_plain)
+        from fluid_simulation_tpu_torch.kernels.project import (
+            project_masked, project_masked_plain)
+        from fluid_simulation_tpu_torch.kernels.vorticity import (
+            confinement, confinement_plain)
+        from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+
+        rng = np.random.default_rng(SEED + 1)
+        small = np.zeros((7, 9, 15), np.float32)
+        small[1:-1, 1:-1, 1:-1] = rng.uniform(size=(5, 7, 13)) < 0.2
+        for obs, wall, flagship in ((flagship_sphere(), "reference", True),
+                                    (small, "noslip", False)):
+            D2, H2, W2 = pad = obs.shape
+            D, H, W = D2 - 2, H2 - 2, W2 - 2
+            n = D * H * W
+            m = build_masks(obs, device="cuda")
+            tag = f"{W}x{H}x{D} {wall}"
+            kv = m.keep_vel[1:-1, 1:-1, 1:-1]
+            print(f"   {tag}: {int(m.solid.sum())} solid cells", flush=True)
+            a, c = diffusion_coeffs(W, H, D, 0.05, 2e-5)
+            f, g = self.rand(rng, pad), self.rand(rng, pad)
+            for b, keep in ((0, m.keep_scalar), (1, m.keep_vel)):
+                k1 = lambda: rbgs_solve(b, f, g, a, c, 15, wall,  # noqa: E731
+                                        keep)
+                p1 = lambda: rbgs_solve_plain(b, f, g, a, c,  # noqa: E731
+                                              15, wall, keep)
+                self.compare("rbgs_solve_keep", k1(), p1(), f"{tag} b={b}")
+
+            vel = [self.rand(rng, pad) for _ in range(3)]
+            k6 = lambda: project_masked(*vel, m.fluid_i, kv,  # noqa: E731
+                                        15, wall)
+            p6 = lambda: project_masked_plain(*vel, m.fluid_i,  # noqa: E731
+                                              kv, 15, wall)
+            self.compare("project_masked", k6(), p6(), tag)
+
+            smp3 = self.rand(rng, (3, D, H, W))
+            smp1 = self.rand(rng, (1, D, H, W))
+            k4 = lambda: pad_bounds(smp3, (1, 2, 3), wall,  # noqa: E731
+                                    m.fluid_i, kv)
+            p4 = lambda: pad_bounds_plain(smp3, (1, 2, 3), wall,  # noqa: E731
+                                          m.fluid_i, kv)
+            self.compare("pad_bounds_masked", k4(), p4(),
+                         f"{tag} bs=(1,2,3)")
+            ks = m.keep_scalar[1:-1, 1:-1, 1:-1]
+            self.compare("pad_bounds_masked",
+                         pad_bounds(smp1, (0,), wall, m.fluid_i, ks),
+                         pad_bounds_plain(smp1, (0,), wall, m.fluid_i, ks),
+                         f"{tag} bs=(0,)")
+
+            wv = [self.rand(rng, pad, -3.0, 3.0) for _ in range(3)]
+            k10 = lambda: confinement(*wv, kv, 5.0, 0.05)  # noqa: E731
+            p10 = lambda: confinement_plain(*wv, kv, 5.0, 0.05)  # noqa: E731
+            self.compare("confinement", k10(), p10(),
+                         f"{tag} eps=5 dt=0.05")
+
+            if flagship:
+                for name, kf, pf, reps in (
+                        ("rbgs_solve_keep", k1, p1, 20),
+                        ("project_masked", k6, p6, 20),
+                        ("pad_bounds_masked", k4, p4, 50),
+                        ("confinement", k10, p10, 50)):
+                    self.time_pair(name, kf, pf, reps)
+                self.bound("rbgs_solve_keep", (f, g[1:-1, 1:-1, 1:-1], kv, f),
+                           15 * OPS_PER_CELL["rbgs_solve_keep"] * n)
+                # divergence 13, keep sweeps 9 each, gradient and update 51
+                self.bound("project_masked", (*vel, m.fluid_i, kv, *vel),
+                           (64 + 9 * 15) * n)
+                self.bound("pad_bounds_masked",
+                           (smp3, m.fluid_i, kv, *k4()),
+                           3 * OPS_PER_CELL["pad_bounds_masked"] * n)
+                self.bound("confinement", (*wv, kv, *wv),
+                           OPS_PER_CELL["confinement"] * n)
+
+    def check_scene(self, wt, label, empty_twin):
+        """An obstacle run: the residual bounds, every field exactly 0 in
+        every solid cell, and with ``empty_twin`` (a 100-step split run) a
+        density sum that differs from the empty split phase's after as many
+        steps (bench.py's obstacle-blind guard)."""
+        torch = self.torch
+        self.check_state(wt, label)
+        solid = wt.masks.solid >= 0.5
+        nonzero = sum(int(torch.count_nonzero(f[solid])) for f in wt.state)
+        print(f"   {label}: {int(solid.sum())} solid cells, {nonzero} "
+              f"nonzero field values in them", flush=True)
+        self.check(nonzero == 0, f"{label}: solid cells are not 0")
+        if empty_twin:
+            empty = self.empty_split_sum
+            self.check(empty is not None, f"{label}: no density sum from the "
+                       f"empty split phase to hold it against")
+            dsum = wt.density_sum()
+            print(f"   {label}: density sum {dsum:.6g} vs empty tunnel "
+                  f"{empty:.6g}", flush=True)
+            self.check(dsum != empty, f"{label}: density sum equals the "
+                       f"empty tunnel's (obstacle-blind)")
+
+    def sphere_split(self):
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        wt = WindTunnel(SimParams(mode="split", div_stats=False,
+                                  step_stats=False),
+                        obstacles=flagship_sphere(), device="cuda")
+        self.run_path(wt, 100, "sphere split", rbgs_solve_keep=3,
+                      project_masked=2, advect_split=2, pad_bounds_masked=2)
+        self.check_scene(wt, "sphere split 128x64x64", empty_twin=True)
+        self.kernel_vs_plain_steps(wt, 3)
+
+    def sphere_compat(self):
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        wt = WindTunnel(SimParams(div_stats=False, step_stats=False),
+                        obstacles=flagship_sphere(), device="cuda")
+        self.run_path(wt, 20, "sphere compat", rbgs_solve_keep=3,
+                      project_masked=2)
+        self.check_scene(wt, "sphere compat 128x64x64", empty_twin=False)
+        self.kernel_vs_plain_steps(wt, 2)
+
+    def stl_split(self):
+        import numpy as np
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.config import SceneParams
+        from fluid_simulation_tpu_torch.scene import (
+            empty_obstacles, load_stl_into_obstacles)
+        here = os.path.dirname(os.path.abspath(__file__))
+        scene = SceneParams(**{**STL_SCENE, "stl_path": os.path.join(
+            here, STL_SCENE["stl_path"])})
+        obs = load_stl_into_obstacles(scene, empty_obstacles(128, 64, 64))
+        n_solid = int((np.asarray(obs) >= 0.5).sum())
+        print(f"   STL scene {STL_SCENE}: {n_solid} solid cells", flush=True)
+        self.check(n_solid > 0, "the STL scene voxelized to no solid cell")
+        wt = WindTunnel(SimParams(mode="split", div_stats=False,
+                                  step_stats=False), obstacles=obs,
+                        device="cuda")
+        self.run_path(wt, 100, "STL split", rbgs_solve_keep=3,
+                      project_masked=2, advect_split=2, pad_bounds_masked=2)
+        self.check_scene(wt, "STL split 128x64x64", empty_twin=True)
+        self.kernel_vs_plain_steps(wt, 3)
+
+    def noslip_vorticity(self):
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        wt = WindTunnel(SimParams(mode="split", wall_mode="noslip",
+                                  vorticity=5.0, div_stats=False,
+                                  step_stats=False), device="cuda")
+        self.run_path(wt, 100, "noslip+vorticity split", rbgs_solve=3,
+                      project_empty=2, advect_split=2, pad_bounds=2,
+                      confinement=1)
+        self.check_state(wt, "noslip+vorticity split 128x64x64")
+        self.kernel_vs_plain_steps(wt, 3)
+
     def times(self):
         from fluid_simulation_tpu_torch import WindTunnel
         from fluid_simulation_tpu_torch.utils.profiling import cells
         reps = {"split 128x64x64": 50, "compat 128x64x64": 20,
-                "split 256x128x128": 10}
-        for label, p in cells().items():
+                "split 256x128x128": 10, "split 128x64x64 sphere": 50,
+                "split 128x64x64 noslip+vorticity": 50}
+        for label, (p, obs) in cells().items():
             n = reps[label]
             runs = {True: [], False: []}
             for use_kernels in (True, False, False, True):
                 wt = WindTunnel(p.replace(use_pallas=use_kernels),
-                                device="cuda")
+                                obstacles=obs, device="cuda")
                 wt.simulate(3)   # warm up (and leave the all-zero state)
                 runs[use_kernels].append(self.event_ms(wt.step, n))
             k_ms = sum(runs[True]) / 2
@@ -327,20 +550,26 @@ def main() -> int:
               file=sys.stderr)
         return 1
     smoke.phase("kernels vs plain", smoke.kernels)
+    smoke.phase("kernels vs plain: obstacle and vorticity kernels",
+                smoke.obstacle_kernels)
     smoke.phase("split flagship 128x64x64, 100 steps", smoke.split_flagship)
     smoke.phase("compat parity 128x64x64, 100 steps", smoke.compat_parity)
     smoke.phase("split 256x128x128, 10 steps", smoke.real_size)
+    smoke.phase("sphere split 128x64x64, 100 steps", smoke.sphere_split)
+    smoke.phase("sphere compat 128x64x64, 20 steps", smoke.sphere_compat)
+    smoke.phase("STL scene split 128x64x64, 100 steps", smoke.stl_split)
+    smoke.phase("noslip+vorticity split 128x64x64, 100 steps",
+                smoke.noslip_vorticity)
     smoke.phase("times", smoke.times)
     if smoke.failures:
         print(f"chip_smoke.py: FAILED phases: {smoke.failures}",
               file=sys.stderr)
         return 1
 
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=smoke.kern[name]["launches"],
-                 max_abs_err=smoke.kern[name]["max_abs_err"],
-                 ms=smoke.kern[name]["ms"],
-                 plain_ms=smoke.kern[name]["plain_ms"])
+                 **{k: smoke.kern[name][k] for k in keys})
             for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,10 @@
-"""Typed simulation parameters, field for field the JAX package's ``SimParams``.
+"""Typed simulation and scene parameters, field for field the JAX package's
+``SimParams`` and ``SceneParams``.
 
-The dataclass, its defaults and its JSON form are the same as
+The dataclasses, their defaults and their JSON form are the same as
 ``fluid_simulation_tpu/config.py``, so a parameter file written by one package
-is read by the other (``convert.params_from_json``). The reference hardcodes
+is read by the other (``convert.params_from_json``,
+``convert.scene_params_from_json``). The reference hardcodes
 its grid in ``simulation.cpp:431-435`` and its physics in
 ``simulation.h:59-64``; both are the defaults here.
 """
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +105,42 @@ class SimParams:
 
     @classmethod
     def from_json(cls, s: str) -> "SimParams":
+        d = json.loads(s)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneParams:
+    """Obstacle placement, mirroring ``loadSTLIntoObstacles``'s signature
+    (``simulation.h:94-104``): mesh path + scale + Euler rotation + translate.
+    """
+
+    stl_path: Optional[str] = None
+    scale: float = 1.0
+    rot_x: float = 0.0
+    rot_y: float = 0.0
+    rot_z: float = 0.0
+    translate_x: float = 0.0
+    translate_y: float = 0.0
+    translate_z: float = 0.0
+
+    # 'bbox_center' rotates about the true bounding-box midpoint;
+    # 'origin' replicates the reference behavior where objCenter is always
+    # (0,0,0) because the min/max sentinels are never updated
+    # (object_loader.cpp:288-296).
+    rotation_center: str = "origin"
+
+    # 'rasterize' — deterministic triangle rasterization + parity fill (default)
+    # 'ray_parity' — per-point jittered ray casting like the reference
+    #                (object_loader.cpp:396-448)
+    voxelizer: str = "rasterize"
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "SceneParams":
         d = json.loads(s)
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})

@@ -1,8 +1,9 @@
 """Carry state and parameters between the JAX package and this one.
 
 Both packages keep the same padded ``(D+2, H+2, W+2)`` fields in the same
-order (``vx, vy, vz, dens``) and the same ``SimParams`` JSON, so NumPy arrays
-and the JSON text are the whole interface; nothing here imports JAX.
+order (``vx, vy, vz, dens``) and the same ``SimParams`` and ``SceneParams``
+JSON, so NumPy arrays and the JSON text are the whole interface; nothing here
+imports JAX. Tensors go to the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -12,15 +13,16 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from fluid_simulation_tpu_torch.config import SimParams
+from fluid_simulation_tpu_torch.config import SceneParams, SimParams
 from fluid_simulation_tpu_torch.models.windtunnel import FluidState
 
 
-def state_from_numpy(fields: Sequence[np.ndarray], device="cpu",
+def state_from_numpy(fields: Sequence[np.ndarray], device="cuda",
                      dtype=None) -> FluidState:
     """A FluidState from four padded arrays in field order — for example
     ``tuple(np.asarray(f) for f in jax_state)``. Values are copied exactly;
-    ``dtype`` defaults to the arrays' own."""
+    ``dtype`` defaults to the arrays' own. ``device="cpu"`` keeps them on
+    the host; the default, the card, raises where there is none."""
     if len(fields) != 4:
         raise ValueError(f"expected 4 fields (vx, vy, vz, dens), got "
                          f"{len(fields)}")
@@ -41,3 +43,8 @@ def state_to_numpy(state: FluidState) -> Tuple[np.ndarray, ...]:
 def params_from_json(s: str) -> SimParams:
     """SimParams from the JSON of either package's ``SimParams.to_json()``."""
     return SimParams.from_json(s)
+
+
+def scene_params_from_json(s: str) -> SceneParams:
+    """SceneParams from the JSON of either package's ``SceneParams.to_json()``."""
+    return SceneParams.from_json(s)

@@ -32,6 +32,15 @@ __device__ __forceinline__ void write_faces(float* v, long i, long sy, long sz,
   if (z == D) v[i + sz] = __fmul_rn(face_sign(neg_mask, field, 2), u);
 }
 
+// Flat index of padded interior cell (z, y, x), 1-based, in an
+// interior-shaped (D, H, W) mask with z/y strides msz/msy and x stride 1 —
+// a contiguous interior array or an interior view of a padded one.
+__device__ __forceinline__ long mask_index(int z, int y, int x, int msz,
+                                           int msy) {
+  return static_cast<long>(z - 1) * msz + static_cast<long>(y - 1) * msy +
+         (x - 1);
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 inline unsigned cdiv(long n, long d) { return static_cast<unsigned>((n + d - 1) / d); }

@@ -24,6 +24,25 @@
 //
 // Numerics: every operation is rounded on its own, in the plain version's
 // order, so the result equals the plain torch projection bit for bit.
+//
+// Obstacle scenes. Replaces project_pallas.py::pallas_project_masked
+// (_make_project_masked_kernel, :182-319), ROADMAP B6. Its arithmetic is
+// not K2's with a mask, and the plain version (kernels/project.py
+// project_masked_plain) keeps its form:
+//   - neighbour validity nb = the neighbour's fluid_i times an in-bounds
+//     factor, rebuilt here from fluid_i with bounds checks; the divergence
+//     is ((((vx+*nb_xp - vx-*nb_xm) + vy+*nb_yp) - vy-*nb_ym) + vz+*nb_zp)
+//     - vz-*nb_zm, then (-0.5h * div) * fluid;
+//   - the Poisson solve is rbgs.cu's keep form with a=1, c=6 and keep =
+//     fluid_i (scalar faces, sign +1), then the deferred red keep multiply;
+//   - the gradient is the 0/1 algebra both*central + (mp-both)*fwd +
+//     (mm-both)*bwd (ops/project.py:47-60), reading p's ghosts where a
+//     mask is 0, as the plain version does;
+//   - v - g*fluid, the faces from that pre-keep edge, and only then the
+//     interior times keep_vel (set_bounds' order).
+// 2 + 2*acc + 1 launches per projection. The masks are interior-shaped
+// views with their own z/y strides. Bound as K2, plus one read of fluid_i
+// per stencil and of keep_vel per cell.
 
 #include "common.cuh"
 
@@ -87,6 +106,81 @@ __global__ void grad_faces_kernel(float* vx, float* vy, float* vz,
   fst::write_faces(vz, i, sy, sz, z, y, x, D, H, W, uz, neg_mask, 2);
 }
 
+// neighbour validity: fluid_i of the neighbour, 0 outside the interior
+__device__ __forceinline__ float nb(bool inside, const float* fl, long m) {
+  return inside ? fl[m] : 0.0f;
+}
+
+__global__ void divergence_masked_kernel(
+    const float* __restrict__ vx, const float* __restrict__ vy,
+    const float* __restrict__ vz, const float* __restrict__ fl, int fsz,
+    int fsy, float* __restrict__ rhs, int D, int H, int W, float neg_half_h) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
+  const int z = blockIdx.z + 1;
+  if (x > W || y > H) return;
+  const long sy = W + 2;
+  const long sz = static_cast<long>(H + 2) * (W + 2);
+  const long i = z * sz + y * sy + x;
+  const long m = fst::mask_index(z, y, x, fsz, fsy);
+  float d = __fsub_rn(__fmul_rn(vx[i + 1], nb(x < W, fl, m + 1)),
+                      __fmul_rn(vx[i - 1], nb(x > 1, fl, m - 1)));
+  d = __fadd_rn(d, __fmul_rn(vy[i + sy], nb(y < H, fl, m + fsy)));
+  d = __fsub_rn(d, __fmul_rn(vy[i - sy], nb(y > 1, fl, m - fsy)));
+  d = __fadd_rn(d, __fmul_rn(vz[i + sz], nb(z < D, fl, m + fsz)));
+  d = __fsub_rn(d, __fmul_rn(vz[i - sz], nb(z > 1, fl, m - fsz)));
+  rhs[i] = __fmul_rn(__fmul_rn(neg_half_h, d), fl[m]);
+}
+
+// ops/project.py::_one_axis_gradient, operation for operation
+__device__ __forceinline__ float gradient_masked(float mp, float mm, float pp,
+                                                 float pm, float pi,
+                                                 float inv_2h, float inv_h) {
+  const float both = __fmul_rn(mp, mm);
+  const float central = __fmul_rn(__fsub_rn(pp, pm), inv_2h);
+  const float fwd = __fmul_rn(__fsub_rn(pp, pi), inv_h);
+  const float bwd = __fmul_rn(__fsub_rn(pi, pm), inv_h);
+  return __fadd_rn(__fadd_rn(__fmul_rn(both, central),
+                             __fmul_rn(__fsub_rn(mp, both), fwd)),
+                   __fmul_rn(__fsub_rn(mm, both), bwd));
+}
+
+__global__ void grad_faces_masked_kernel(
+    float* vx, float* vy, float* vz, const float* __restrict__ p,
+    const float* __restrict__ fl, int fsz, int fsy,
+    const float* __restrict__ kv, int ksz, int ksy, int D, int H, int W,
+    float inv_h, float inv_2h, int neg_mask) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
+  const int z = blockIdx.z + 1;
+  if (x > W || y > H) return;
+  const long sy = W + 2;
+  const long sz = static_cast<long>(H + 2) * (W + 2);
+  const long i = z * sz + y * sy + x;
+  const long m = fst::mask_index(z, y, x, fsz, fsy);
+  const float pi = p[i];
+  const float gx = gradient_masked(nb(x < W, fl, m + 1), nb(x > 1, fl, m - 1),
+                                   p[i + 1], p[i - 1], pi, inv_2h, inv_h);
+  const float gy = gradient_masked(nb(y < H, fl, m + fsy),
+                                   nb(y > 1, fl, m - fsy), p[i + sy],
+                                   p[i - sy], pi, inv_2h, inv_h);
+  const float gz = gradient_masked(nb(z < D, fl, m + fsz),
+                                   nb(z > 1, fl, m - fsz), p[i + sz],
+                                   p[i - sz], pi, inv_2h, inv_h);
+  const float f = fl[m];
+  const float k = kv[fst::mask_index(z, y, x, ksz, ksy)];
+  const float ux = __fsub_rn(vx[i], __fmul_rn(gx, f));
+  const float uy = __fsub_rn(vy[i], __fmul_rn(gy, f));
+  const float uz = __fsub_rn(vz[i], __fmul_rn(gz, f));
+  vx[i] = __fmul_rn(ux, k);
+  vy[i] = __fmul_rn(uy, k);
+  vz[i] = __fmul_rn(uz, k);
+  // faces mirror the pre-keep edge
+  fst::write_faces(vx, i, sy, sz, z, y, x, D, H, W, ux, neg_mask, 0);
+  fst::write_faces(vy, i, sy, sz, z, y, x, D, H, W, uy, neg_mask, 1);
+  fst::write_faces(vz, i, sy, sz, z, y, x, D, H, W, uz, neg_mask, 2);
+}
+
 }  // namespace
 
 extern "C" {
@@ -113,6 +207,37 @@ int fst_grad_faces(void* vx, void* vy, void* vz, const void* p, int D, int H,
       static_cast<float*>(vx), static_cast<float*>(vy),
       static_cast<float*>(vz), static_cast<const float*>(p), D, H, W, inv_h,
       inv_2h, neg_mask);
+  return fst::launch_status();
+}
+
+// Obstacle form: rhs interior = (-0.5*h * masked divergence) * fluid_i.
+int fst_divergence_masked(const void* vx, const void* vy, const void* vz,
+                          const void* fl, int fsz, int fsy, void* rhs, int D,
+                          int H, int W, float neg_half_h, void* stream) {
+  const dim3 block(32, 8, 1);
+  const dim3 grid(fst::cdiv(W, block.x), fst::cdiv(H, block.y), D);
+  divergence_masked_kernel<<<grid, block, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vx), static_cast<const float*>(vy),
+      static_cast<const float*>(vz), static_cast<const float*>(fl), fsz, fsy,
+      static_cast<float*>(rhs), D, H, W, neg_half_h);
+  return fst::launch_status();
+}
+
+// Obstacle form: v = (v - grad p * fluid_i) * keep_vel on the interior, the
+// faces from the pre-keep edge.
+int fst_grad_faces_masked(void* vx, void* vy, void* vz, const void* p,
+                          const void* fl, int fsz, int fsy, const void* kv,
+                          int ksz, int ksy, int D, int H, int W, float inv_h,
+                          float inv_2h, int neg_mask, void* stream) {
+  const dim3 block(32, 8, 1);
+  const dim3 grid(fst::cdiv(W, block.x), fst::cdiv(H, block.y), D);
+  grad_faces_masked_kernel<<<grid, block, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(vx), static_cast<float*>(vy),
+      static_cast<float*>(vz), static_cast<const float*>(p),
+      static_cast<const float*>(fl), fsz, fsy, static_cast<const float*>(kv),
+      ksz, ksy, D, H, W, inv_h, inv_2h, neg_mask);
   return fst::launch_status();
 }
 

@@ -1,11 +1,12 @@
 """Build, load and call the CUDA kernels.
 
 The sources in ``fluid_simulation_tpu_torch/csrc`` compile with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``. The build happens at first use, into
-``<checkout>/build/fst_kernels/<hash>/``, keyed on a hash of the sources
-and flags, so a fresh checkout builds itself and an edited source rebuilds.
-Importing this module needs neither ``nvcc`` nor a card.
+``sm_90a``, one ``nvcc`` per source, all started together, and link into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, into ``<checkout>/build/fst_kernels/<hash>/``, keyed
+on a hash of the sources and flags, so a fresh checkout builds itself and an
+edited source rebuilds. Importing this module needs neither ``nvcc`` nor a
+card.
 
 ``-fmad=false`` keeps every ``a*b+c`` as two roundings, as the plain torch
 versions compute it; the sources also spell the critical expressions with
@@ -30,19 +31,30 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "fst_kernels"
 LIB_NAME = "libfst_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: each launches on the given stream and returns
 # cudaGetLastError() as an int
 SIGNATURES = {
     "fst_rbgs_half": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    "fst_rbgs_half_keep": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                           _P),
+    "fst_keep_red": (_P, _P, _I, _I, _I, _I, _I, _P),
     "fst_divergence": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "fst_grad_faces": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "fst_divergence_masked": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F,
+                              _P),
+    "fst_grad_faces_masked": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
+                              _I, _I, _F, _F, _I, _P),
     "fst_lerp_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _F, _F, _P),
     "fst_pad_bounds": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "fst_pad_bounds_masked": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _P),
+    "fst_curl": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "fst_confine": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                    _F, _P),
 }
 
 
@@ -71,27 +83,41 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists;
-    returns its path. The compiler's report (registers, spills) is kept in
-    ``nvcc.log`` beside it."""
+    returns its path. Each source compiles in its own ``nvcc`` process, all
+    at once, and the objects link into the library. The compiler's report
+    (registers, spills) is kept in ``nvcc.log`` beside it."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
+    nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = Path(tmp.name)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path), *cu],
-                              capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp_path, lib)   # atomic: concurrent builders agree
+        cu = [s for s in sources() if s.suffix == ".cu"]
+        objs = [work / (src.stem + ".o") for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        logs = []
+        for src, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            logs.append((src.name, out, proc.returncode))
+        tmp = work / LIB_NAME
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(("link", link.stdout + link.stderr, link.returncode))
+        (out_dir / "nvcc.log").write_text(
+            "".join(f"== {name} (rc {rc})\n{out}" for name, out, rc in logs))
+        failed = [(name, out) for name, out, rc in logs if rc != 0]
+        if failed:
+            name, out = failed[0]
+            raise RuntimeError(f"nvcc failed on {name}:\n{out[-4000:]}")
+        os.replace(tmp, lib)   # atomic: concurrent builds agree
     finally:
-        tmp_path.unlink(missing_ok=True)
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -140,6 +166,24 @@ def check_operands(name: str, tensors, shapes=None) -> None:
                 and tuple(t.shape) != tuple(shapes[i]):
             raise ValueError(f"{name}: operand {i} has shape "
                              f"{tuple(t.shape)}, expected {tuple(shapes[i])}")
+
+
+def mask_view(name: str, m: torch.Tensor, shape, device):
+    """``(pointer, z stride, y stride)`` of an interior-shaped (D, H, W)
+    float32 mask on the card ``device``: a contiguous interior array or an
+    interior view of a padded one (``keep[1:-1, 1:-1, 1:-1]``). Raises
+    unless its shape is ``shape`` and its x stride is 1."""
+    shape = tuple(shape)
+    if m.device != device:
+        raise ValueError(f"{name}: mask on {m.device}, expected {device}")
+    if m.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{name}: {m.dtype} mask is not ported to the card yet (ROADMAP "
+            f"A11); only float32 kernels exist")
+    if tuple(m.shape) != shape or m.stride(2) != 1:
+        raise ValueError(f"{name}: mask of shape {tuple(m.shape)} and strides "
+                         f"{m.stride()}, expected {shape} with x stride 1")
+    return ptr(m), m.stride(0), m.stride(1)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -1,8 +1,9 @@
 """Kernel 4: padded fields with setBounds faces from advected interiors
 (``csrc/pad_bounds.cu``) and its plain torch version.
 
-Port of ``fluid_simulation_tpu/kernels/bounds_pallas.py::pallas_pad_bounds``.
-Per field with tag ``b``: interior = the sample (times ``fluid_i`` and the
+Port of ``fluid_simulation_tpu/kernels/bounds_pallas.py::pallas_pad_bounds``,
+unmasked and masked (``fluid_i``/``keep_i``, obstacle scenes). Per field
+with tag ``b``: interior = the sample (times ``fluid_i`` and the
 keep mask in obstacle scenes), each ghost face = the signed mirror of the
 pre-keep interior edge (x+ a plain copy), ghost edges and corners zero —
 ``set_bounds(b, zeros.at[interior].set(sample))``.
@@ -48,32 +49,42 @@ def pad_bounds(smp: torch.Tensor, bs: Sequence[int],
                fluid_i: Optional[torch.Tensor] = None,
                keep_i: Optional[torch.Tensor] = None):
     """Padded fields from interiors ``smp`` (B, D, H, W) or (D, H, W), one per
-    tag in ``bs``. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises. The masked form (obstacle scenes) has no
-    kernel yet. On the card the fields are views of one (B, D+2, H+2, W+2)
-    allocation."""
+    tag in ``bs``; obstacle scenes pass both interior masks ``fluid_i`` and
+    ``keep_i`` (a view of a padded mask is fine). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises. On the card
+    the fields are views of one (B, D+2, H+2, W+2) allocation."""
     if not _build.on_card(smp):
         return pad_bounds_plain(smp, bs, wall_mode, fluid_i, keep_i)
-    if fluid_i is not None or keep_i is not None:
-        raise NotImplementedError(
-            "pad_bounds with obstacle masks is not ported to the card yet "
-            "(ROADMAP B7)")
+    masked = fluid_i is not None or keep_i is not None
+    name = "pad_bounds_masked" if masked else "pad_bounds"
+    if masked and (fluid_i is None or keep_i is None):
+        raise ValueError(f"{name}: give both fluid_i and keep_i, or neither")
     if smp.ndim == 3:
         smp = smp[None]
     if smp.ndim != 4 or smp.shape[0] != len(bs) or min(smp.shape[1:]) < 1:
-        raise ValueError(f"pad_bounds: {tuple(smp.shape)} vs bs={tuple(bs)}")
-    _build.check_operands("pad_bounds", (smp,))
+        raise ValueError(f"{name}: {tuple(smp.shape)} vs bs={tuple(bs)}")
+    _build.check_operands(name, (smp,))
     B, D, H, W = smp.shape
+    if masked:
+        for m in (fluid_i, keep_i):
+            _build.mask_view(name, m, (D, H, W), smp.device)
     out = torch.empty((B, D + 2, H + 2, W + 2), dtype=smp.dtype,
                       device=smp.device)
-    _launch(smp, out, bs, wall_mode)
-    LAUNCHES["pad_bounds"] += 1
+    _launch(smp, out, bs, wall_mode, fluid_i, keep_i)
+    LAUNCHES[name] += 1
     return tuple(out.unbind(0))
 
 
-def _launch(smp, out, bs, wall_mode):
+def _launch(smp, out, bs, wall_mode, fluid_i=None, keep_i=None):
     B, D, H, W = smp.shape
     mask = _build.neg_mask([face_signs(b, wall_mode) for b in bs])
+    ptr = _build.ptr
     with torch.cuda.device(smp.device):
-        _build.call("fst_pad_bounds", _build.ptr(smp), _build.ptr(out), B, D,
-                    H, W, mask, _build.stream(smp))
+        if fluid_i is None:
+            _build.call("fst_pad_bounds", ptr(smp), ptr(out), B, D, H, W,
+                        mask, _build.stream(smp))
+            return
+        fl, kp = (_build.mask_view("pad_bounds_masked", m, (D, H, W),
+                                   smp.device) for m in (fluid_i, keep_i))
+        _build.call("fst_pad_bounds_masked", ptr(smp), ptr(out), *fl, *kp, B,
+                    D, H, W, mask, _build.stream(smp))

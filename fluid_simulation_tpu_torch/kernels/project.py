@@ -1,20 +1,28 @@
-"""Kernel 2: the pressure projection of an empty scene (``csrc/project.cu`` plus
-``csrc/rbgs.cu``'s half-sweep) and its plain torch version.
+"""Kernel 2 and kernel 6: the pressure projection (``csrc/project.cu`` plus
+``csrc/rbgs.cu``'s half-sweep) and its plain torch version, for an empty
+scene and for an obstacle scene.
 
-Port of ``fluid_simulation_tpu/kernels/project_pallas.py::pallas_project_empty``:
-divergence scaled by ``-0.5h``, ``p = 0``, ``acc`` red-black sweeps with
-``a=1, c=6``, central/one-sided gradient subtraction, velocity faces.
+- ``project_empty`` ports
+  ``fluid_simulation_tpu/kernels/project_pallas.py::pallas_project_empty``:
+  divergence scaled by ``-0.5h``, ``p = 0``, ``acc`` red-black sweeps with
+  ``a=1, c=6``, central/one-sided gradient subtraction, velocity faces.
+- ``project_masked`` ports ``pallas_project_masked``: the divergence over
+  fluid neighbours times ``fluid_i``, the sweeps with keep = ``fluid_i``,
+  the 0/1-mask gradient times ``fluid_i``, the faces from the pre-keep
+  edge, then ``keep_vel`` on the interior.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fluid_simulation_tpu_torch.kernels import LAUNCHES, _build
+from fluid_simulation_tpu_torch.kernels.linsolve import sweeps
 from fluid_simulation_tpu_torch.ops.bounds import face_signs, write_faces_
 from fluid_simulation_tpu_torch.ops.linsolve import as_scalar, relax
-from fluid_simulation_tpu_torch.ops.project import grid_h
+from fluid_simulation_tpu_torch.ops.project import _one_axis_gradient, grid_h
 
 
 def _coefficients(shape):
@@ -87,22 +95,112 @@ def project_empty(vx, vy, vz, acc: int = 15, wall_mode: str = "reference"):
     return outs
 
 
+def _masks(wall_mode):
+    """(velocity face-sign mask, pressure face-sign mask, 1/6 in f32)."""
+    return (_build.neg_mask([face_signs(b, wall_mode) for b in (1, 2, 3)]),
+            _build.neg_mask([face_signs(0, wall_mode)]),
+            float(np.float32(1.0) / np.float32(6.0)))
+
+
 def _launch(vx, vy, vz, rhs, p, acc, wall_mode):
     """Divergence, 2*acc half-sweeps on ``p``, gradient + faces, in place on
     the wrapper's own buffers."""
     D, H, W = (n - 2 for n in vx.shape)
     nhh, inv_h, inv_2h = (float(x) for x in _coefficients(vx.shape))
-    crec = float(np.float32(1.0) / np.float32(6.0))
-    vmask = _build.neg_mask([face_signs(b, wall_mode) for b in (1, 2, 3)])
-    pmask = _build.neg_mask([face_signs(0, wall_mode)])
+    vmask, pmask, crec = _masks(wall_mode)
     ptr = _build.ptr
     with torch.cuda.device(vx.device):
         stream = _build.stream(vx)
         _build.call("fst_divergence", ptr(vx), ptr(vy), ptr(vz), ptr(rhs),
                     D, H, W, nhh, stream)
-        for _ in range(acc):
-            for color in (0, 1):
-                _build.call("fst_rbgs_half", ptr(p), ptr(rhs), D, H, W, 1.0,
-                            crec, color, pmask, stream)
+        sweeps(p, rhs, 1.0, crec, acc, pmask, None, stream)
         _build.call("fst_grad_faces", ptr(vx), ptr(vy), ptr(vz), ptr(p),
                     D, H, W, inv_h, inv_2h, vmask, stream)
+
+
+def project_masked_plain(vx, vy, vz, fluid_i, keep_vel_i, acc: int = 15,
+                         wall_mode: str = "reference"):
+    """The obstacle-scene projection in plain torch, in the TPU kernel's
+    arithmetic form (equal in value to ``ops.project.project`` with
+    ``empty_scene=False``). ``fluid_i`` and ``keep_vel_i`` are interior
+    masks (``masks.fluid_i``, ``masks.keep_vel[1:-1, 1:-1, 1:-1]``)."""
+    dtype = vx.dtype
+    D, H, W = (n - 2 for n in vx.shape)
+    nhh = as_scalar(_coefficients(vx.shape)[0], dtype)
+    fl = fluid_i.to(dtype)
+    # a neighbour counts where it is fluid and in the interior: fluid_i
+    # padded with a zero shell, shifted
+    flp = F.pad(fl, (1, 1, 1, 1, 1, 1))
+    nb_xp, nb_xm = flp[1:-1, 1:-1, 2:], flp[1:-1, 1:-1, :-2]
+    nb_yp, nb_ym = flp[1:-1, 2:, 1:-1], flp[1:-1, :-2, 1:-1]
+    nb_zp, nb_zm = flp[2:, 1:-1, 1:-1], flp[:-2, 1:-1, 1:-1]
+
+    div_val = (vx[1:-1, 1:-1, 2:] * nb_xp - vx[1:-1, 1:-1, :-2] * nb_xm
+               + vy[1:-1, 2:, 1:-1] * nb_yp - vy[1:-1, :-2, 1:-1] * nb_ym
+               + vz[2:, 1:-1, 1:-1] * nb_zp - vz[:-2, 1:-1, 1:-1] * nb_zm)
+    rhs = torch.zeros_like(vx)
+    rhs[1:-1, 1:-1, 1:-1] = nhh * div_val * fl
+    # the scalar keep is fluid_i inside and 1 on the ghost shell
+    keep_s = F.pad(fl, (1, 1, 1, 1, 1, 1), value=1.0)
+    p = relax(0, torch.zeros_like(vx), rhs, 1.0, 6.0, keep_s, acc=acc,
+              solver="rbgs", wall_mode=wall_mode)
+
+    h = grid_h(W, H, D)
+    grads = (
+        _one_axis_gradient(p, nb_xp, nb_xm, lambda q: q[1:-1, 1:-1, 2:],
+                           lambda q: q[1:-1, 1:-1, :-2], h, dtype),
+        _one_axis_gradient(p, nb_yp, nb_ym, lambda q: q[1:-1, 2:, 1:-1],
+                           lambda q: q[1:-1, :-2, 1:-1], h, dtype),
+        _one_axis_gradient(p, nb_zp, nb_zm, lambda q: q[2:, 1:-1, 1:-1],
+                           lambda q: q[:-2, 1:-1, 1:-1], h, dtype))
+    outs = []
+    for b, v, g in zip((1, 2, 3), (vx, vy, vz), grads):
+        v = v.clone()
+        v[1:-1, 1:-1, 1:-1] = v[1:-1, 1:-1, 1:-1] - g * fl
+        write_faces_(v, b, wall_mode)     # faces from the pre-keep edge
+        v[1:-1, 1:-1, 1:-1] *= keep_vel_i.to(dtype)
+        outs.append(v)
+    return tuple(outs)
+
+
+def project_masked(vx, vy, vz, fluid_i, keep_vel_i, acc: int = 15,
+                   wall_mode: str = "reference"):
+    """Project padded (vx, vy, vz) of an obstacle scene; returns three new
+    tensors. ``fluid_i`` and ``keep_vel_i`` are interior-shaped masks (a
+    view of a padded mask is fine). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernels or raises."""
+    if not _build.on_card(vx):
+        return project_masked_plain(vx, vy, vz, fluid_i, keep_vel_i, acc,
+                                    wall_mode)
+    _build.check_operands("project_masked", (vx, vy, vz),
+                          (None, vx.shape, vx.shape))
+    if vx.ndim != 3 or min(vx.shape) < 3:
+        raise ValueError(f"project_masked: bad padded shape {tuple(vx.shape)}")
+    interior = tuple(n - 2 for n in vx.shape)
+    for m in (fluid_i, keep_vel_i):
+        _build.mask_view("project_masked", m, interior, vx.device)
+    outs = tuple(v.clone() for v in (vx, vy, vz))
+    rhs = torch.empty_like(vx)     # only its interior is written and read
+    p = torch.zeros_like(vx)
+    _launch_masked(*outs, rhs, p, fluid_i, keep_vel_i, acc, wall_mode)
+    LAUNCHES["project_masked"] += 1
+    return outs
+
+
+def _launch_masked(vx, vy, vz, rhs, p, fluid_i, keep_vel_i, acc, wall_mode):
+    """Masked divergence, the keep-form half-sweeps on ``p`` with keep =
+    ``fluid_i`` and the red keep multiply, then the masked gradient + faces
+    + keep_vel, in place on the wrapper's own buffers."""
+    D, H, W = (n - 2 for n in vx.shape)
+    nhh, inv_h, inv_2h = (float(x) for x in _coefficients(vx.shape))
+    vmask, pmask, crec = _masks(wall_mode)
+    fl = _build.mask_view("project_masked", fluid_i, (D, H, W), vx.device)
+    kv = _build.mask_view("project_masked", keep_vel_i, (D, H, W), vx.device)
+    ptr = _build.ptr
+    with torch.cuda.device(vx.device):
+        stream = _build.stream(vx)
+        _build.call("fst_divergence_masked", ptr(vx), ptr(vy), ptr(vz), *fl,
+                    ptr(rhs), D, H, W, nhh, stream)
+        sweeps(p, rhs, 1.0, crec, acc, pmask, fluid_i, stream)
+        _build.call("fst_grad_faces_masked", ptr(vx), ptr(vy), ptr(vz),
+                    ptr(p), *fl, *kv, D, H, W, inv_h, inv_2h, vmask, stream)

@@ -3,7 +3,8 @@
 
 The force ``f = eps * dt * (N x omega)`` re-injects the small swirls that
 semi-Lagrangian advection smears. Central differences on the interior, zero
-in and next to solids. Plain torch; the card's kernel is still to be ported.
+in and next to solids. Plain torch; ``kernels/vorticity.py`` holds the
+card's kernel, which repeats this arithmetic.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ def _central(f, axis):
     return 0.5 * (f[1:-1, 1:-1, 2:] - f[1:-1, 1:-1, :-2])  # x
 
 
-def confinement_force(vx, vy, vz, masks: SceneMasks, eps: float, dt: float):
-    """Return (fx, fy, fz) interior force fields scaled by dt."""
+def force(vx, vy, vz, keep_i, eps: float, dt: float):
+    """Return (fx, fy, fz) interior force fields scaled by dt, with the
+    interior keep mask ``keep_i`` (no-slip ring and solids 0)."""
     wx_i = _central(vz, 1) - _central(vy, 0)
     wy_i = _central(vx, 0) - _central(vz, 2)
     wz_i = _central(vy, 2) - _central(vx, 1)
@@ -37,20 +39,26 @@ def confinement_force(vx, vy, vz, masks: SceneMasks, eps: float, dt: float):
     norm = torch.sqrt(gx * gx + gy * gy + gz * gz) + as_scalar(1e-5, vx.dtype)
     nx, ny, nz = gx / norm, gy / norm, gz / norm
 
-    keep = masks.keep_vel[1:-1, 1:-1, 1:-1]
-    s = as_scalar(np.float32(eps) * np.float32(dt), vx.dtype) * keep
+    s = as_scalar(np.float32(eps) * np.float32(dt), vx.dtype) * keep_i
     return (s * (ny * wz_i - nz * wy_i), s * (nz * wx_i - nx * wz_i),
             s * (nx * wy_i - ny * wx_i))
+
+
+def add_force(vel, forces):
+    """New padded fields: each of ``vel`` with its force added to the
+    interior."""
+    outs = []
+    for v, f in zip(vel, forces):
+        v = v.clone()
+        v[1:-1, 1:-1, 1:-1] += f
+        outs.append(v)
+    return tuple(outs)
 
 
 def apply_confinement(vx, vy, vz, masks: SceneMasks, eps: float, dt: float):
     """New (vx, vy, vz) with the confinement force added to the interior."""
     if eps == 0.0:
         return vx, vy, vz
-    outs = []
-    for v, f in zip((vx, vy, vz), confinement_force(vx, vy, vz, masks, eps,
-                                                    dt)):
-        v = v.clone()
-        v[1:-1, 1:-1, 1:-1] += f
-        outs.append(v)
-    return tuple(outs)
+    return add_force((vx, vy, vz), force(vx, vy, vz,
+                                         masks.keep_vel[1:-1, 1:-1, 1:-1],
+                                         eps, dt))

@@ -42,12 +42,13 @@ class SceneMasks(NamedTuple):
         return tuple(self.fluid_i.shape)
 
 
-def build_masks(obstacles, dtype=torch.float32, device="cpu") -> SceneMasks:
+def build_masks(obstacles, dtype=torch.float32, device="cuda") -> SceneMasks:
     """Derive every solver mask from the padded obstacle field (1 = solid).
 
     ``obstacles`` (NumPy array or tensor) has padded shape
     ``(D+2, H+2, W+2)`` with a zero ghost shell. Every mask is 0/1, so it is
-    built in float32 and cast to ``dtype`` exactly."""
+    built in float32 and cast to ``dtype`` exactly. The masks go to the card
+    unless ``device="cpu"`` asks for the host."""
     obs = torch.as_tensor(np.asarray(obstacles, np.float32)
                           if not isinstance(obstacles, torch.Tensor)
                           else obstacles, dtype=torch.float32, device=device)

@@ -2,12 +2,17 @@
 share, and device time by kernel, from ``torch.profiler``.
 
     python -m fluid_simulation_tpu_torch.utils.profiling [--steps N] [--out FILE]
+        [--cells LABEL ...] [--wall-only]
 
-profiles the slice's cells on one CUDA device (split and compat at
-128x64x64, split at 256x128x128, and the split step on the plain torch
-path), prints one summary line and the top device operations per cell, and
-writes the numbers as JSON to ``--out``. A CPU tensor has no device metric,
-so the measurement refuses to run without a card.
+profiles the cells on one CUDA device (split and compat at 128x64x64, split
+at 256x128x128, split at 128x64x64 with the bench's sphere and with no-slip
+walls and vorticity, and the split step on the plain torch path), prints
+one summary line and the top device operations per cell, and writes the
+numbers as JSON to ``--out``. ``--cells`` keeps only the cells with those
+labels; ``--wall-only`` times the host wall and the process's CPU time
+per step and skips the profiler, for repeated runs that compare two trees:
+the CPU time leaves out the time the host spends on other processes. A CPU tensor has no
+device metric, so the measurement refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -16,11 +21,14 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fluid_simulation_tpu_torch.config import SimParams
+from fluid_simulation_tpu_torch.scene.primitives import (
+    add_sphere, empty_obstacles)
 
 
 def busy_us(intervals: Iterable[Tuple[float, float]]) -> float:
@@ -43,24 +51,14 @@ def step_breakdown(wt, steps: int = 20, warmup: int = 5,
                    top: int = 12) -> Dict:
     """Profile ``steps`` calls of ``wt.step()`` on a CUDA WindTunnel.
 
-    ``wall_ms`` is host time per step ending in a synchronise, taken before
-    the profiler attaches (an attached profiler slows every launch);
+    ``wall_ms`` and ``cpu_ms`` are from ``host_ms``, taken before the
+    profiler attaches (an attached profiler slows every launch);
     ``busy_ms`` is the union of the device operations' intervals per step
     under the profiler, and ``idle`` is ``1 - busy_ms / wall_ms``.
     ``top`` lists (name, launches per step, device ms per step)."""
-    if wt.device.type != "cuda":
-        raise RuntimeError(f"step_breakdown needs a CUDA WindTunnel, got "
-                           f"{wt.device}: a CPU run gives no device metric")
+    wall, cpu = host_ms(wt, steps, warmup)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    wt.simulate(warmup)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        wt.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / steps * 1e3
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -78,18 +76,47 @@ def step_breakdown(wt, steps: int = 20, warmup: int = 5,
     rows = sorted(((name, n / steps, us / steps / 1e3)
                    for name, (n, us) in by_name.items()),
                   key=lambda r: -r[2])
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1.0 - busy_ms / wall_ms,
-                device_ops=len(dev) / steps, top=rows[:top])
+    return dict(wall_ms=wall, cpu_ms=cpu, busy_ms=busy_ms,
+                idle=1.0 - busy_ms / wall, device_ops=len(dev) / steps,
+                top=rows[:top])
 
 
-def cells() -> Dict[str, SimParams]:
-    """The slice's cells on the kernel path, as chip_smoke.py times them."""
+def host_ms(wt, steps: int, warmup: int = 5) -> Tuple[float, float]:
+    """(host wall, this process's CPU time) per step of ``steps`` calls of
+    ``wt.step()`` after ``warmup`` steps, ending in a synchronise."""
+    if wt.device.type != "cuda":
+        raise RuntimeError(f"profiling needs a CUDA WindTunnel, got "
+                           f"{wt.device}: a CPU run gives no device metric")
+    wt.simulate(warmup)
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), time.process_time()
+    for _ in range(steps):
+        wt.step()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / steps * 1e3,
+            (time.process_time() - c0) / steps * 1e3)
+
+
+def flagship_sphere() -> np.ndarray:
+    """The JAX bench's ``obstacle_sphere`` scene (bench.py:224-226): a
+    sphere of radius 10 at (40, 32, 32) in the 128x64x64 tunnel."""
+    return add_sphere(empty_obstacles(128, 64, 64), cx=40, cy=32, cz=32,
+                      radius=10)
+
+
+def cells() -> Dict[str, Tuple[SimParams, Optional[np.ndarray]]]:
+    """The cells on the kernel path, as chip_smoke.py times them: label ->
+    (params, padded obstacle field or None for the empty tunnel)."""
     base = SimParams(div_stats=False, step_stats=False)
+    split = base.replace(mode="split")
     return {
-        "split 128x64x64": base.replace(mode="split"),
-        "compat 128x64x64": base,
-        "split 256x128x128": base.replace(mode="split", width=256,
-                                          height=128, depth=128),
+        "split 128x64x64": (split, None),
+        "compat 128x64x64": (base, None),
+        "split 256x128x128": (split.replace(width=256, height=128,
+                                            depth=128), None),
+        "split 128x64x64 sphere": (split, flagship_sphere()),
+        "split 128x64x64 noslip+vorticity": (
+            split.replace(wall_mode="noslip", vorticity=5.0), None),
     }
 
 
@@ -97,6 +124,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", help="write the breakdowns here as JSON")
+    ap.add_argument("--cells", nargs="+", metavar="LABEL",
+                    help="only these cells, by the labels printed")
+    ap.add_argument("--wall-only", action="store_true",
+                    help="host wall and CPU time per step only, without "
+                         "the profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
@@ -109,12 +141,26 @@ def main(argv=None) -> int:
     print(card, flush=True)
     out = {"card": card, "steps": args.steps, "cells": {}}
     todo = cells()
-    todo["split 128x64x64 plain"] = todo["split 128x64x64"].replace(
-        use_pallas=False)
-    for label, p in todo.items():
-        r = step_breakdown(WindTunnel(p, device="cuda"), steps=args.steps)
+    split, _ = todo["split 128x64x64"]
+    todo["split 128x64x64 plain"] = (split.replace(use_pallas=False), None)
+    if args.cells:
+        unknown = set(args.cells) - set(todo)
+        if unknown:
+            raise SystemExit(f"profiling: no cell {sorted(unknown)}; the "
+                             f"cells are {list(todo)}")
+        todo = {k: todo[k] for k in args.cells}
+    for label, (p, obs) in todo.items():
+        wt = WindTunnel(p, obstacles=obs, device="cuda")
+        if args.wall_only:
+            wall, cpu = host_ms(wt, args.steps)
+            out["cells"][label] = {"wall_ms": wall, "cpu_ms": cpu}
+            print(f"== {label}: wall {wall:.4f} ms/step, host CPU {cpu:.4f} "
+                  f"ms/step", flush=True)
+            continue
+        r = step_breakdown(wt, steps=args.steps)
         out["cells"][label] = r
-        print(f"== {label}: wall {r['wall_ms']:.4f} ms/step, device busy "
+        print(f"== {label}: wall {r['wall_ms']:.4f} ms/step, host CPU "
+              f"{r['cpu_ms']:.4f} ms/step, device busy "
               f"{r['busy_ms']:.4f} ms/step, idle {100 * r['idle']:.1f} %, "
               f"{r['device_ops']:.1f} device ops/step", flush=True)
         for name, n, ms in r["top"]:

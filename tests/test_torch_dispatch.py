@@ -5,8 +5,9 @@ The kernel branch of every wrapper only runs on a card, so a fault there
 CPU test. Here the branch is forced on for CPU tensors and each launcher
 is swapped for a stub that checks what the real launcher would be given
 (shape, dtype, contiguity, no aliasing of inputs) and writes the plain
-result. The production split and compat steps then run through the real
-wrappers, and the launch counters must show 3/2/2/2 and 3/2/0/0 per step.
+result. The production steps then run through the real wrappers: the
+empty split and compat steps, obstacle scenes and no-slip walls with
+vorticity, and the launch counters must show which kernels ran, per step.
 Unported configurations must raise on the CUDA branch.
 """
 
@@ -15,11 +16,12 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_split as k3, bounds as k4, linsolve as k1,
-    project as k2, reset_launches)
+    project as k2, reset_launches, vorticity as k10)
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
 from fluid_simulation_tpu_torch.scene.masks import build_masks
@@ -28,8 +30,10 @@ from fluid_simulation_tpu_torch.scene.primitives import (
 
 torch.set_num_threads(1)
 
+CPU = "cpu"
 W, H, D = 16, 8, 8
 PAD = (D + 2, H + 2, W + 2)
+INTERIOR = (D, H, W)
 
 
 def _operand(t, shape):
@@ -42,11 +46,22 @@ def _distinct(*ts):
     assert len(set(ptrs)) == len(ptrs), "launcher operands alias"
 
 
-def stub_k1(out, prev, b, a, c, acc, wall_mode):
+def _mask(m, shape):
+    """An interior mask as the kernels take it: float32, x stride 1."""
+    assert m.dtype == torch.float32 and m.stride(2) == 1
+    assert tuple(m.shape) == tuple(shape), (tuple(m.shape), shape)
+
+
+def stub_k1(out, prev, b, a, c, acc, wall_mode, keep=None):
     _operand(out, prev.shape)
     _operand(prev, out.shape)
     _distinct(out, prev)
-    out.copy_(k1.rbgs_solve_plain(b, out, prev, a, c, acc, wall_mode))
+    keep_pad = None
+    if keep is not None:
+        _mask(keep, [n - 2 for n in out.shape])
+        keep_pad = F.pad(keep, (1, 1, 1, 1, 1, 1), value=1.0)
+    out.copy_(k1.rbgs_solve_plain(b, out, prev, a, c, acc, wall_mode,
+                                  keep_pad))
 
 
 def stub_k2(vx, vy, vz, rhs, p, acc, wall_mode):
@@ -55,6 +70,19 @@ def stub_k2(vx, vy, vz, rhs, p, acc, wall_mode):
     _distinct(vx, vy, vz, rhs, p)
     assert not p.any(), "p must start at zero, ghosts included"
     res = k2.project_empty_plain(vx, vy, vz, acc, wall_mode)
+    for dst, src in zip((vx, vy, vz), res):
+        dst.copy_(src)
+
+
+def stub_k6(vx, vy, vz, rhs, p, fluid_i, keep_vel_i, acc, wall_mode):
+    for t in (vx, vy, vz, rhs, p):
+        _operand(t, vx.shape)
+    _distinct(vx, vy, vz, rhs, p)
+    for m in (fluid_i, keep_vel_i):
+        _mask(m, [n - 2 for n in vx.shape])
+    assert not p.any(), "p must start at zero, ghosts included"
+    res = k2.project_masked_plain(vx, vy, vz, fluid_i, keep_vel_i, acc,
+                                  wall_mode)
     for dst, src in zip((vx, vy, vz), res):
         dst.copy_(src)
 
@@ -70,24 +98,50 @@ def stub_k3(prev, vx, vy, vz, a, b, out, dt):
     out.copy_(k3.advect_split_plain(prev, vx, vy, vz, dt))
 
 
-def stub_k4(smp, out, bs, wall_mode):
+def stub_k4(smp, out, bs, wall_mode, fluid_i=None, keep_i=None):
     B, Di, Hi, Wi = smp.shape
     assert B == len(bs)
     _operand(smp, smp.shape)
     _operand(out, (B, Di + 2, Hi + 2, Wi + 2))
-    out.copy_(torch.stack(k4.pad_bounds_plain(smp, bs, wall_mode)))
+    _distinct(smp, out)
+    assert (fluid_i is None) == (keep_i is None)
+    if fluid_i is not None:
+        for m in (fluid_i, keep_i):
+            _mask(m, (Di, Hi, Wi))
+    out.copy_(torch.stack(k4.pad_bounds_plain(smp, bs, wall_mode, fluid_i,
+                                              keep_i)))
+
+
+def stub_k10(vx, vy, vz, keep_vel_i, w, mag, outs, eps, dt):
+    interior = [n - 2 for n in vx.shape]
+    for t in (vx, vy, vz, mag, *outs):
+        _operand(t, vx.shape)
+    _operand(w, [3] + interior)
+    _mask(keep_vel_i, interior)
+    _distinct(vx, vy, vz, w, mag, *outs)
+    assert not mag.any(), "|omega| scratch must start with a zero shell"
+    for dst, src in zip(outs, k10.confinement_plain(vx, vy, vz, keep_vel_i,
+                                                    eps, dt)):
+        dst.copy_(src)
 
 
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
     monkeypatch.setattr(_build, "on_card", lambda t: True)
-    for mod, stub in ((k1, stub_k1), (k2, stub_k2), (k3, stub_k3),
-                      (k4, stub_k4)):
-        monkeypatch.setattr(mod, "_launch", stub)
+    for mod, name, stub in ((k1, "_launch", stub_k1), (k2, "_launch", stub_k2),
+                            (k2, "_launch_masked", stub_k6),
+                            (k3, "_launch", stub_k3), (k4, "_launch", stub_k4),
+                            (k10, "_launch", stub_k10)):
+        monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
     reset_launches()
+
+
+def _counts(**nonzero):
+    """LAUNCHES as it should read, from its nonzero entries."""
+    return {k: nonzero.get(k, 0) for k in LAUNCHES}
 
 
 def _random_state(p, seed=0):
@@ -98,74 +152,139 @@ def _random_state(p, seed=0):
     return [torch.tensor(f, dtype=torch.float32) for f in fields]
 
 
-@pytest.mark.parametrize("mode,counts", [
-    ("split", (3, 2, 2, 2)), ("compat", (3, 2, 0, 0)), ("fast", (3, 2, 0, 1))])
-def test_production_step_launch_counts(card, mode, counts):
-    p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode)
-    wt = WindTunnel(p)
+def _run_two_steps(p, obstacles=None):
+    """Two steps through the stubbed kernel branch from a random state;
+    the per-step launch counts, after checking that the kernel branch
+    computes what the plain step computes."""
+    wt = WindTunnel(p, obstacles=obstacles, device=CPU)
     wt.state = FluidState(*_random_state(p))
     start = wt.state
     wt.simulate(2)
-    per_step = tuple(LAUNCHES[k] / 2 for k in
-                     ("rbgs_solve", "project_empty", "advect_split",
-                      "pad_bounds"))
-    assert per_step == counts
-
-    # the kernel branch computes what the plain step computes
+    per_step = {k: n / 2 for k, n in LAUNCHES.items()}
     ref = start
     for _ in range(2):
         ref, _ = simulation_step(ref, wt.masks, wt.params.replace(
             use_pallas=False))
     for a, b in zip(wt.state, ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+    return per_step
+
+
+@pytest.mark.parametrize("mode,counts", [
+    ("split", (3, 2, 2, 2)), ("compat", (3, 2, 0, 0)), ("fast", (3, 2, 0, 1))])
+def test_production_step_launch_counts(card, mode, counts):
+    p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode)
+    per_step = _run_two_steps(p)
+    assert per_step == _counts(**dict(zip(
+        ("rbgs_solve", "project_empty", "advect_split", "pad_bounds"),
+        counts)))
+
+
+SPHERE = "sphere"
+
+
+@pytest.mark.parametrize("mode,scene,change,nonzero", [
+    ("split", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2,
+                               advect_split=2, pad_bounds_masked=2)),
+    ("compat", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2)),
+    ("fast", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2,
+                              pad_bounds_masked=1)),
+    ("split", None, dict(wall_mode="noslip", vorticity=5.0),
+     dict(rbgs_solve=3, project_empty=2, advect_split=2, pad_bounds=2,
+          confinement=1)),
+    ("split", SPHERE, dict(wall_mode="noslip", vorticity=5.0),
+     dict(rbgs_solve_keep=3, project_masked=2, advect_split=2,
+          pad_bounds_masked=2, confinement=1)),
+    ("compat", None, dict(wall_mode="noslip", vorticity=5.0),
+     dict(rbgs_solve=3, project_empty=2, confinement=1)),
+])
+def test_obstacle_and_vorticity_step_launch_counts(card, mode, scene, change,
+                                                   nonzero):
+    """Obstacle scenes and no-slip walls with vorticity run their kernels:
+    a keep solve counts as rbgs_solve_keep, never as rbgs_solve."""
+    p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode, **change)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    assert _run_two_steps(p, obs) == _counts(**nonzero)
 
 
 def test_plain_reference_run_launches_nothing(card):
     p = SimParams(width=W, height=H, depth=D, acc=3, mode="split",
-                  use_pallas=False)
-    WindTunnel(p).simulate(1)
+                  use_pallas=False, wall_mode="noslip", vorticity=5.0)
+    WindTunnel(p, device=CPU).simulate(1)
+    WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2),
+               device=CPU).simulate(1)
     assert set(LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("change", [
-    dict(vorticity=5.0), dict(dtype="bfloat16"), dict(advect_window=4),
-    dict(batched=True), "sphere"])
+    dict(dtype="bfloat16"), dict(advect_window=4), dict(batched=True)])
 def test_unported_config_raises_on_card(card, change):
-    p = SimParams(width=W, height=H, depth=D, acc=3, mode="split")
-    obs = None
-    if change == "sphere":
-        obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2)
-    else:
-        p = p.replace(**change)
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode="split",
+                  **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WindTunnel(p, obstacles=obs)
+        WindTunnel(p, device=CPU)
     # simulation_step itself refuses too, not only the constructor
-    p = p.replace(empty_scene=obs is None)
-    masks = build_masks(obs if obs is not None else empty_obstacles(W, H, D))
+    p = p.replace(empty_scene=True)
+    masks = build_masks(empty_obstacles(W, H, D), device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulation_step(init_state(p), masks, p)
+        simulation_step(init_state(p, device=CPU), masks, p)
     assert set(LAUNCHES.values()) == {0}
 
 
 def test_wrappers_refuse_unported_operands(card):
     f = torch.zeros(PAD)
-    keep = torch.ones(PAD)
-    with pytest.raises(NotImplementedError, match="B5"):
-        k1.rbgs_solve(1, f, f.clone(), 0.5, 4.0, keep=keep)
-    smp = torch.zeros((1, D, H, W))
-    with pytest.raises(NotImplementedError, match="B7"):
-        k4.pad_bounds(smp, (0,), fluid_i=torch.ones((D, H, W)),
-                      keep_i=torch.ones((D, H, W)))
+    ones_i = torch.ones(INTERIOR)
     bf = torch.zeros(PAD, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="A11"):
         k2.project_empty(bf, bf.clone(), bf.clone())
+    with pytest.raises(NotImplementedError, match="A11"):
+        k2.project_masked(f, f.clone(), f.clone(), ones_i,
+                          ones_i.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         k1.rbgs_solve(0, f.transpose(0, 2), f.transpose(0, 2).clone(), 1.0,
                       6.0)
     with pytest.raises(ValueError, match="shape"):
+        k1.rbgs_solve(1, f, f.clone(), 0.5, 4.0, keep=ones_i)
+    with pytest.raises(ValueError, match="shape"):
         k3.advect_split(torch.zeros((3,) + PAD), f, f, torch.zeros((4, 4, 4)),
                         0.05)
+    smp = torch.zeros((1,) + INTERIOR)
+    with pytest.raises(ValueError, match="both"):
+        k4.pad_bounds(smp, (0,), fluid_i=ones_i)
+    with pytest.raises(ValueError, match="x stride"):
+        k4.pad_bounds(smp, (0,), fluid_i=ones_i,
+                      keep_i=torch.ones((W, H, D)).transpose(0, 2))
+    with pytest.raises(ValueError, match="expected"):
+        k10.confinement(f, f.clone(), f.clone(), torch.ones(PAD), 5.0, 0.05)
     assert set(LAUNCHES.values()) == {0}
+
+
+def test_keep_masks_may_be_views_of_padded_masks(card):
+    """The step passes ``keep_vel[1:-1, 1:-1, 1:-1]``, a strided view: the
+    wrappers take it without a copy, and the plain result follows."""
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2)
+    m = build_masks(obs, device=CPU)
+    kv = m.keep_vel[1:-1, 1:-1, 1:-1]
+    assert not kv.is_contiguous()
+    rng = np.random.default_rng(4)
+    vel = [torch.tensor(rng.normal(size=PAD), dtype=torch.float32)
+           for _ in range(3)]
+    smp = torch.stack([v[1:-1, 1:-1, 1:-1] for v in vel])
+    got = (k2.project_masked(*vel, m.fluid_i, kv, acc=3)
+           + k4.pad_bounds(smp, (1, 2, 3), fluid_i=m.fluid_i, keep_i=kv)
+           + k10.confinement(*vel, kv, 5.0, 0.05)
+           + (k1.rbgs_solve(1, vel[0], vel[1], 0.5, 4.0, acc=3,
+                            keep=m.keep_vel),))
+    want = (k2.project_masked_plain(*vel, m.fluid_i, kv, acc=3)
+            + k4.pad_bounds_plain(smp, (1, 2, 3), fluid_i=m.fluid_i,
+                                  keep_i=kv)
+            + k10.confinement_plain(*vel, kv, 5.0, 0.05)
+            + (k1.rbgs_solve_plain(1, vel[0], vel[1], 0.5, 4.0, 3,
+                                   keep=m.keep_vel),))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert LAUNCHES == _counts(rbgs_solve_keep=1, project_masked=1,
+                               pad_bounds_masked=1, confinement=1)
 
 
 def test_wrapper_outputs_do_not_alias_inputs(card):
@@ -177,13 +296,20 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out2 = k2.project_empty(vx, vy, vz, acc=2)
     out3 = k3.advect_split(torch.stack([vx, vy]), vx, vy, vz, 0.05)
     out4 = k4.pad_bounds(out3, (1, 2))
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2)
+    m = build_masks(obs, device=CPU)
+    kv = m.keep_vel[1:-1, 1:-1, 1:-1]
+    out5 = k1.rbgs_solve(1, vx, g, 0.5, 4.0, acc=2, keep=m.keep_vel)
+    out6 = k2.project_masked(vx, vy, vz, m.fluid_i, kv, acc=2)
+    out7 = k4.pad_bounds(out3, (1, 2), fluid_i=m.fluid_i, keep_i=kv)
+    out8 = k10.confinement(vx, vy, vz, kv, 5.0, 0.05)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
-    for t in (out1, *out2):
+    for t in (out1, *out2, out5, *out6, *out8):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     assert len(out4) == 2 and out4[0].shape == PAD
-    assert LAUNCHES == {"rbgs_solve": 1, "project_empty": 1,
-                        "advect_split": 1, "pad_bounds": 1}
+    assert len(out7) == 2 and out7[1].shape == PAD
+    assert LAUNCHES == {k: 1 for k in LAUNCHES}
 
 
 def test_launch_error_raises(monkeypatch):
@@ -214,7 +340,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_sources_and_sign_mask():
     names = {s.name for s in _build.sources()}
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
-            "common.cuh"} <= names
+            "vorticity.cu", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
     assert _build.neg_mask([(-1.0, 1.0, 1.0), (1.0, -1.0, 1.0),

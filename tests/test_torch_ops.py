@@ -24,6 +24,8 @@ from fluid_simulation_tpu_torch.scene.masks import build_masks
 
 torch.set_num_threads(1)
 
+CPU = "cpu"
+
 W, H, D = 24, 12, 10
 SHAPE = (D + 2, H + 2, W + 2)
 SCENES = ["empty", "sphere"]
@@ -37,7 +39,7 @@ def _scene(scene):
     obs = empty_obstacles(W, H, D)
     if scene == "sphere":
         obs = add_sphere(obs, 8, 6, 5, 3)
-    return obs, jax_build_masks(jnp.asarray(obs)), build_masks(obs)
+    return obs, jax_build_masks(jnp.asarray(obs)), build_masks(obs, device=CPU)
 
 
 def _fields(n, seed, scale=1.0):

@@ -6,9 +6,11 @@ import torch
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.utils.profiling import (
-    busy_us, cells, step_breakdown)
+    busy_us, cells, host_ms, step_breakdown)
 
 torch.set_num_threads(1)
+
+CPU = "cpu"
 
 
 @pytest.mark.parametrize("intervals,want", [
@@ -23,16 +25,32 @@ def test_busy_us_is_union_length(intervals, want):
 
 
 def test_step_breakdown_refuses_cpu():
-    wt = WindTunnel(SimParams(width=8, height=4, depth=4, acc=2))
+    wt = WindTunnel(SimParams(width=8, height=4, depth=4, acc=2), device=CPU)
     with pytest.raises(RuntimeError, match="CUDA"):
         step_breakdown(wt, steps=1, warmup=0)
+
+
+def test_host_ms_refuses_cpu():
+    wt = WindTunnel(SimParams(width=8, height=4, depth=4, acc=2), device=CPU)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        host_ms(wt, steps=1, warmup=0)
 
 
 def test_cells_are_the_slice_on_the_kernel_path():
     c = cells()
     assert list(c) == ["split 128x64x64", "compat 128x64x64",
-                       "split 256x128x128"]
+                       "split 256x128x128", "split 128x64x64 sphere",
+                       "split 128x64x64 noslip+vorticity"]
     assert all(p.use_pallas and p.solver == "rbgs" and p.dtype == "float32"
-               and not p.vorticity for p in c.values())
-    assert c["compat 128x64x64"] == SimParams(div_stats=False,
-                                              step_stats=False)
+               for p, _ in c.values())
+    assert c["compat 128x64x64"] == (SimParams(div_stats=False,
+                                               step_stats=False), None)
+    split, _ = c["split 128x64x64"]
+    # the JAX bench's obstacle_sphere and noslip_vorticity (bench.py:224-228)
+    p, obs = c["split 128x64x64 sphere"]
+    assert p == split and obs.shape == split.padded_shape
+    assert obs[32, 32, 40] == 1.0 and int(obs.sum()) == 4169
+    assert c["split 128x64x64 noslip+vorticity"] == (
+        split.replace(wall_mode="noslip", vorticity=5.0), None)
+    assert not any(p.vorticity for label, (p, _) in c.items()
+                   if "vorticity" not in label)

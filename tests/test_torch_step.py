@@ -33,6 +33,8 @@ from fluid_simulation_tpu_torch.models.windtunnel import simulation_step
 
 torch.set_num_threads(1)
 
+CPU = "cpu"
+
 W, H, D = 24, 12, 10
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
@@ -52,16 +54,22 @@ def _obstacles(scene):
     return add_sphere(obs, 8, 6, 5, 3) if scene == "sphere" else obs
 
 
-@pytest.mark.parametrize("scene", ["empty", "sphere"])
+# the bench's noslip_vorticity config (bench.py:227-228) on the empty tunnel
+NOSLIP_VORTICITY = dict(wall_mode="noslip", vorticity=5.0)
+
+
+@pytest.mark.parametrize("scene", ["empty", "sphere", "noslip+vorticity"])
 @pytest.mark.parametrize("mode", ["split", "compat"])
 def test_step_matches_jax(mode, scene):
     kw = dict(width=W, height=H, depth=D, mode=mode, acc=8)
+    if scene == "noslip+vorticity":
+        kw.update(NOSLIP_VORTICITY)
     obs = _obstacles(scene)
     jt = jwt.WindTunnel(JaxSimParams(**kw), obstacles=obs)
-    tt = WindTunnel(SimParams(**kw), obstacles=obs)
+    tt = WindTunnel(SimParams(**kw), obstacles=obs, device=CPU)
     fields = _random_fields(jt.params.padded_shape)
     jt.state = jwt.FluidState(*map(jnp.asarray, fields))
-    tt.state = state_from_numpy(fields)
+    tt.state = state_from_numpy(fields, device=CPU)
     for step, bound in enumerate(STEP_BOUNDS, 1):
         jstats, tstats = jt.step(), tt.step()
         for name, got, want in zip(("vx", "vy", "vz", "dens"),
@@ -93,7 +101,7 @@ def golden_runs():
                 np.testing.assert_array_equal(obs, g["obs"])
             p = SimParams(width=int(g["W"]), height=int(g["H"]),
                           depth=int(g["D"]), solver="gs_wavefront")
-            wt = WindTunnel(p, obstacles=obs)
+            wt = WindTunnel(p, obstacles=obs, device=CPU)
             states, sums = [], []
             for _ in range(20):
                 sums.append(float(wt.step().density_sum))
@@ -144,7 +152,7 @@ def test_golden_64cubed_jacobi():
     g = _golden("empty_64x64x64")
     steps = 12
     p = SimParams(width=64, height=64, depth=64, solver="jacobi", acc=20)
-    wt = WindTunnel(p)
+    wt = WindTunnel(p, device=CPU)
     sums = [float(wt.step().density_sum) for _ in range(steps)]
     np.testing.assert_allclose(sums, g["dens_sums"][:steps], rtol=0.15)
     np.testing.assert_allclose(sums[-2:], g["dens_sums"][steps - 2:steps],
@@ -164,8 +172,9 @@ def test_step_leaves_input_state_unchanged(mode):
     """The JAX step is pure; the port's must be too (pvx and buffer are read
     after the solves)."""
     p = SimParams(width=16, height=8, depth=8, acc=4, mode=mode)
-    wt = WindTunnel(p)
-    state = state_from_numpy(_random_fields(p.padded_shape, seed=4))
+    wt = WindTunnel(p, device=CPU)
+    state = state_from_numpy(_random_fields(p.padded_shape, seed=4),
+                             device=CPU)
     before = [f.clone() for f in state]
     new, _ = simulation_step(state, wt.masks, wt.params)
     for a, b, c in zip(state, before, new):
@@ -179,7 +188,7 @@ def test_convert_round_trip():
     jax_state = jwt.FluidState(*map(jnp.asarray,
                                     _random_fields(p.padded_shape, seed=5)))
     arrays = tuple(np.asarray(f) for f in jax_state)
-    state = state_from_numpy(arrays)
+    state = state_from_numpy(arrays, device=CPU)
     back = state_to_numpy(state)
     for a, b in zip(arrays, back):
         np.testing.assert_array_equal(a, b)
@@ -191,7 +200,7 @@ def test_convert_round_trip():
     assert tp.to_json() == p.to_json()
     assert JaxSimParams.from_json(tp.to_json()) == p
     with pytest.raises(ValueError):
-        state_from_numpy(arrays[:3])
+        state_from_numpy(arrays[:3], device=CPU)
 
 
 def test_simparams_match_jax():
@@ -213,7 +222,7 @@ def test_package_imports_without_jax():
         "    importlib.import_module(m.name)\n"
         "from fluid_simulation_tpu_torch import WindTunnel, SimParams\n"
         "wt = WindTunnel(SimParams(width=8, height=4, depth=4, acc=2,"
-        " mode='split'))\n"
+        " mode='split'), device='cpu')\n"
         "wt.simulate(1)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', "
         "'fluid_simulation_tpu.')) for k in sys.modules if sys.modules[k])\n")
@@ -233,7 +242,7 @@ def test_package_imports_without_jax():
 
 def test_windtunnel_api():
     p = SimParams(width=16, height=8, depth=8, acc=3, mode="split")
-    wt = WindTunnel(p)
+    wt = WindTunnel(p, device=CPU)
     assert wt.params.empty_scene
     wt.add_density(3, 4, 5, 0.5)
     wt.set_velocity(3, 4, 5, 1.0, -2.0, 0.25)
@@ -252,4 +261,23 @@ def test_windtunnel_api():
     assert float(wt.state.vx[4, 4, 8]) == 0.0
     with pytest.raises(ValueError, match="empty_scene"):
         WindTunnel(p.replace(empty_scene=True),
-                   obstacles=add_sphere(empty_obstacles(16, 8, 8), 5, 4, 4, 2))
+                   obstacles=add_sphere(empty_obstacles(16, 8, 8), 5, 4, 4, 2),
+                   device=CPU)
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device="cpu"`` every entry point asks for the card, and on
+    a machine without one it raises instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    p = SimParams(width=8, height=4, depth=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WindTunnel(p)
+    from fluid_simulation_tpu_torch.models.windtunnel import init_state
+    from fluid_simulation_tpu_torch.scene.masks import build_masks
+    fields = _random_fields(p.padded_shape)
+    for call in (lambda: init_state(p), lambda: state_from_numpy(fields),
+                 lambda: build_masks(empty_obstacles(8, 4, 4))):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+    assert WindTunnel(p, device=CPU).state.vx.device.type == "cpu"
