@@ -15,15 +15,21 @@ final ``ok`` line):
    13x7x5. Each kernel's time, its plain version's, and its bound (the
    bytes it must move at 3.35 TB/s or its f32 operations at 67 TFLOP/s,
    whichever is larger) at the flagship shapes;
-3. the split flagship: ``WindTunnel(SimParams(mode="split", ...),
+3. the streamed big-grid kernels (rbgs_sweep1, rbgs_pass at nsw 1 and 2
+   with and without keep, div_packed, grad_packed) against their plain
+   versions, bitwise, at 256x128x128 with the bench sphere's masks and at
+   an odd 13x7x10 with random 0/1 solids and no-slip walls (ragged tiles);
+   the streamed solve and projection wrappers against their plain versions
+   (nsw 2 and 1, an odd acc) and against the resident route (K1, K1 keep,
+   K2 + tail, K6 + tail) for b = 0..3; their times and bounds;
+4. the split flagship: ``WindTunnel(SimParams(mode="split", ...),
    device="cuda").simulate(100)`` — finite, density > 0, divergence
    residual max < 20 and mean < 1 (bench.py's bounds), kernel launch
    counts 3/2/2/2 per step; then 3 more steps on the kernel path and on the
    plain path (``use_pallas=False``) from the same state, which must agree;
-4. compat parity: 100 default compat steps at 128x64x64 against the
+5. compat parity: 100 default compat steps at 128x64x64 against the
    reference's own print (density sum 14125.1 within 1.5 %, max 0.0505
    within 2 %), launch counts 3/2/0/0 per step;
-5. split at 256x128x128 for 10 steps, finite and within the residual bounds;
 6. the bench's sphere (bench.py:224-226) in split for 100 steps and in
    compat for 20, and the reference main()'s STL scene (the repo's
    icosphere, rotated and translated as main() does, at scale 0.5) in split
@@ -32,7 +38,21 @@ final ``ok`` line):
    and the kernel path equal to the plain path over 3 (compat: 2) steps;
 7. no-slip walls with vorticity 5.0 (bench.py:227-228) in split for 100
    steps: launch counts, residual bounds, kernel path equal to plain;
-8. ms/step of the kernel path and the plain path, timed with CUDA events.
+8. the bench's six big configs (bench.py:227-263) through
+   ``WindTunnel(...).simulate``: 256x128x128 for 10 steps, 256^3 for 4,
+   512x256x256 for 3, each empty and with its sphere. Launch counts per
+   step prove the streamed route ran (3 streamed solves, 2 streamed
+   projections, 2 advections, 4 paddings); the residual bounds; solids
+   exactly 0; each sphere's density sum differs from its empty twin's; at
+   256x128x128 one step of the kernel path equals the plain path; ms/step;
+9. per call at each big shape, both routes of the solve and of the
+   projection (resident and streamed, in turns), and K4 / K4 masked
+   against their plain versions at 512x256x256 (the shapes of the
+   never-routed streamed padding it stands for);
+10. ms/step of the kernel path and the plain path, timed with CUDA events.
+
+``--only PHASE ...`` runs the build and the named phases (keys in
+``PHASES``) and prints no result lines.
 
 Needs torch with CUDA and ``nvcc`` (``CUDA_HOME`` or ``PATH``); imports no
 JAX.
@@ -77,11 +97,27 @@ KERNELS = {
                           "fluid_simulation_tpu/kernels/bounds_pallas.py:257"),
     "confinement": ("fluid_simulation_tpu_torch/csrc/vorticity.cu",
                     "fluid_simulation_tpu/kernels/vorticity_pallas.py:103"),
+    # the big-grid route: sweep 1 + passes (the merged-window pass B9, which
+    # the JAX package routes every empty big grid and the masked 256x128x128
+    # and 512x256x256 to), the streamed projections B13 and B14
+    "rbgs_solve_stream": ("fluid_simulation_tpu_torch/csrc/rbgs_stream.cu",
+                          "fluid_simulation_tpu/kernels/linsolve_mdma.py:287"),
+    "rbgs_solve_stream_keep": (
+        "fluid_simulation_tpu_torch/csrc/rbgs_stream.cu",
+        "fluid_simulation_tpu/kernels/linsolve_mdma.py:287"),
+    "project_stream": ("fluid_simulation_tpu_torch/csrc/project_stream.cu",
+                       "fluid_simulation_tpu/kernels/project_stream.py:208"),
+    "project_stream_masked": (
+        "fluid_simulation_tpu_torch/csrc/project_stream.cu",
+        "fluid_simulation_tpu/kernels/project_stream.py:504"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
 OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "pad_bounds_masked": 2, "confinement": 53}
+# the JAX bench's big grids (W, H, D) and its step counts there
+# (bench.py:227-263)
+BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
 
 
 def card_line() -> str:
@@ -100,7 +136,7 @@ class Smoke:
         self.torch = torch
         self.failures = []
         self.kern = {k: {"max_abs_err": 0.0} for k in KERNELS}
-        self.empty_split_sum = None
+        self.twin_sums = {}   # label -> density sum of an empty run
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
@@ -137,36 +173,41 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def compare(self, name, got, want, label):
+    def compare(self, name, got, want, label, ref="plain"):
         torch = self.torch
         got = got if isinstance(got, (tuple, list)) else (got,)
         want = want if isinstance(want, (tuple, list)) else (want,)
         torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        ok = all(a.shape == b.shape for a, b in zip(got, want)) and err == 0.0
+        ok = len(got) == len(want) and all(
+            a.shape == b.shape for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want)) \
+            if ok else float("inf")
+        ok = ok and err == 0.0
         k = self.kern[name]
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        print(f"   {name:14s} {label:34s} max|kernel-plain| = {err:.3g} "
+        print(f"   {name:14s} {label:34s} max|kernel-{ref}| = {err:.3g} "
               f"(bound 0: bitwise) {'ok' if ok else 'MISMATCH'}", flush=True)
         self.check(ok, f"{name} {label}: max abs err {err}")
 
-    def bound(self, name, tensors, ops):
+    def bound(self, name, tensors, ops, record=True):
         """The least time the card could take for one call: the bytes of
         its inputs and outputs ``tensors`` (each moved once) at the HBM
-        rate, or ``ops`` f32 operations at the f32 rate, the larger."""
+        rate, or ``ops`` f32 operations at the f32 rate, the larger. With
+        ``record`` it is the kernel's bound in the result line."""
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-        self.kern[name].update(
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None)   # no single PyTorch call computes it
+        if record:
+            self.kern[name].update(
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)   # no single PyTorch call computes it
         print(f"   {name:14s} bound {max(t_bytes, t_ops) * 1e3:.6f} ms "
               f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mflop)", flush=True)
 
-    def time_pair(self, name, kf, pf, reps):
+    def time_pair(self, name, kf, pf, reps, shapes="flagship shapes"):
         ms, pms = self.event_ms(kf, reps), self.event_ms(pf, reps)
         self.kern[name].update(ms=ms, plain_ms=pms)
-        print(f"   {name:14s} flagship shapes: kernel {ms:.4f} ms"
+        print(f"   {name:14s} {shapes}: kernel {ms:.4f} ms"
               f", plain {pms:.4f} ms per call", flush=True)
 
     def run_path(self, wt, steps, label, **nonzero):
@@ -187,6 +228,17 @@ class Smoke:
         want = {k: steps * nonzero.get(k, 0) for k in counts}
         self.check(counts == want, f"{label}: launch counts {counts} != "
                    f"{want}")
+
+    def step_like(self, rng, pad, keep=None):
+        """Three random padded velocities as a run has them: ghost edges
+        and corners zero, and with ``keep`` (keep_scalar) zero in solids."""
+        torch = self.torch
+        shell = torch.zeros(pad, device="cuda")
+        shell[1:-1, 1:-1, :] = shell[1:-1, :, 1:-1] = 1.0
+        shell[:, 1:-1, 1:-1] = 1.0
+        if keep is not None:
+            shell = shell * keep
+        return [self.rand(rng, pad) * shell for _ in range(3)]
 
     def kernel_vs_plain_steps(self, wt, steps):
         """``steps`` more steps on the kernel path and on the plain path
@@ -280,7 +332,7 @@ class Smoke:
         self.run_path(wt, 100, "split 3/2/2/2 per step", rbgs_solve=3,
                       project_empty=2, advect_split=2, pad_bounds=2)
         self.check_state(wt, "split 128x64x64")
-        self.empty_split_sum = wt.density_sum()
+        self.twin_sums["split 128x64x64"] = wt.density_sum()
         self.kernel_vs_plain_steps(wt, 3)
 
     def check_state(self, wt, label):
@@ -315,14 +367,6 @@ class Smoke:
                    f"density sum {dsum} outside 1.5 % of {REF_SUM}")
         self.check(abs(dmax - REF_MAX) / REF_MAX <= MAX_BAND,
                    f"dens max {dmax} outside 2 % of {REF_MAX}")
-
-    def real_size(self):
-        from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        wt = WindTunnel(SimParams(width=256, height=128, depth=128,
-                                  mode="split", div_stats=False,
-                                  step_stats=False), device="cuda")
-        wt.simulate(10)
-        self.check_state(wt, "split 256x128x128, 10 steps")
 
     def obstacle_kernels(self):
         """K1 keep, K6, K4 masked and K10 against their plain versions: the
@@ -407,11 +451,11 @@ class Smoke:
                 self.bound("confinement", (*wv, kv, *wv),
                            OPS_PER_CELL["confinement"] * n)
 
-    def check_scene(self, wt, label, empty_twin):
+    def check_scene(self, wt, label, twin=None):
         """An obstacle run: the residual bounds, every field exactly 0 in
-        every solid cell, and with ``empty_twin`` (a 100-step split run) a
-        density sum that differs from the empty split phase's after as many
-        steps (bench.py's obstacle-blind guard)."""
+        every solid cell, and with ``twin`` (the label of an empty run of
+        as many steps) a density sum that differs from that run's
+        (bench.py's obstacle-blind guard)."""
         torch = self.torch
         self.check_state(wt, label)
         solid = wt.masks.solid >= 0.5
@@ -419,10 +463,10 @@ class Smoke:
         print(f"   {label}: {int(solid.sum())} solid cells, {nonzero} "
               f"nonzero field values in them", flush=True)
         self.check(nonzero == 0, f"{label}: solid cells are not 0")
-        if empty_twin:
-            empty = self.empty_split_sum
+        if twin:
+            empty = self.twin_sums.get(twin)
             self.check(empty is not None, f"{label}: no density sum from the "
-                       f"empty split phase to hold it against")
+                       f"empty run {twin!r} to hold it against")
             dsum = wt.density_sum()
             print(f"   {label}: density sum {dsum:.6g} vs empty tunnel "
                   f"{empty:.6g}", flush=True)
@@ -437,7 +481,8 @@ class Smoke:
                         obstacles=flagship_sphere(), device="cuda")
         self.run_path(wt, 100, "sphere split", rbgs_solve_keep=3,
                       project_masked=2, advect_split=2, pad_bounds_masked=2)
-        self.check_scene(wt, "sphere split 128x64x64", empty_twin=True)
+        self.check_scene(wt, "sphere split 128x64x64",
+                         twin="split 128x64x64")
         self.kernel_vs_plain_steps(wt, 3)
 
     def sphere_compat(self):
@@ -447,7 +492,7 @@ class Smoke:
                         obstacles=flagship_sphere(), device="cuda")
         self.run_path(wt, 20, "sphere compat", rbgs_solve_keep=3,
                       project_masked=2)
-        self.check_scene(wt, "sphere compat 128x64x64", empty_twin=False)
+        self.check_scene(wt, "sphere compat 128x64x64")
         self.kernel_vs_plain_steps(wt, 2)
 
     def stl_split(self):
@@ -468,7 +513,7 @@ class Smoke:
                         device="cuda")
         self.run_path(wt, 100, "STL split", rbgs_solve_keep=3,
                       project_masked=2, advect_split=2, pad_bounds_masked=2)
-        self.check_scene(wt, "STL split 128x64x64", empty_twin=True)
+        self.check_scene(wt, "STL split 128x64x64", twin="split 128x64x64")
         self.kernel_vs_plain_steps(wt, 3)
 
     def noslip_vorticity(self):
@@ -482,14 +527,262 @@ class Smoke:
         self.check_state(wt, "noslip+vorticity split 128x64x64")
         self.kernel_vs_plain_steps(wt, 3)
 
+    def stream_kernels(self):
+        """The big-grid route's four kernels against their plain versions,
+        its two wrappers against theirs and against the resident route: the
+        bench sphere's masks at 256x128x128, random 0/1 solids with no-slip
+        walls at 13x7x10 (every tile axis ragged)."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import (
+            linsolve_stream as ls, project_stream as ps)
+        from fluid_simulation_tpu_torch.kernels.bounds import pad_bounds
+        from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
+        from fluid_simulation_tpu_torch.kernels.project import (
+            divergence_plain, project_empty, project_masked)
+        from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.utils.profiling import big_sphere
+
+        rng = np.random.default_rng(SEED + 2)
+        small = np.zeros((12, 9, 15), np.float32)
+        small[1:-1, 1:-1, 1:-1] = rng.uniform(size=(10, 7, 13)) < 0.2
+        for obs, wall, main in ((big_sphere(256, 128, 128), "reference",
+                                 True), (small, "noslip", False)):
+            D2, H2, W2 = pad = obs.shape
+            D, H, W = D2 - 2, H2 - 2, W2 - 2
+            n = D * H * W
+            m = build_masks(obs, device="cuda")
+            tag = f"{W}x{H}x{D} {wall}"
+            kv = m.keep_vel[1:-1, 1:-1, 1:-1]
+            print(f"   {tag}: {int(m.solid.sum())} solid cells", flush=True)
+            a, c = diffusion_coeffs(W, H, D, 0.05, 2e-5)
+            b = 1 if main else 2
+            f, g = self.rand(rng, pad), self.rand(rng, pad)
+            rhs_i = g[1:-1, 1:-1, 1:-1]
+            fpre = self.rand(rng, (D, H, W))
+            # each kernel alone
+            self.compare("rbgs_solve_stream", ls.sweep1(f, rhs_i, a, c),
+                         ls.sweep1_plain(f, rhs_i, a, c), f"{tag} rbgs_sweep1")
+            for nsw in ls.KERNEL_NSW:
+                for name, keep_i in (("rbgs_solve_stream", None),
+                                     ("rbgs_solve_stream_keep", kv)):
+                    self.compare(
+                        name, ls.sweep_pass(fpre, rhs_i, keep_i, b, a, c, nsw,
+                                            wall),
+                        ls.pass_plain(fpre, rhs_i, keep_i, b, a, c, nsw,
+                                      wall), f"{tag} rbgs_pass nsw={nsw}")
+            vel = [self.rand(rng, pad) for _ in range(3)]
+            for name, fl in (("project_stream", None),
+                             ("project_stream_masked", m.fluid_i)):
+                self.compare(name, ps.divergence_packed(*vel, fl),
+                             divergence_plain(*vel, fl), f"{tag} div_packed")
+                self.compare(name, ps.gradient_packed(*vel, fpre, fl),
+                             ps.gradient_packed_plain(*vel, fpre, fl),
+                             f"{tag} grad_packed")
+            # the wrappers: passes of 2 and of 1, an odd acc, remainders
+            for nsw, acc in ((2, 15), (2, 6), (1, 5)):
+                self.compare("rbgs_solve_stream",
+                             ls.rbgs_solve_stream(b, f, g, a, c, acc, wall,
+                                                  nsw=nsw),
+                             ls.rbgs_solve_stream_plain(b, f, g, a, c, acc,
+                                                        wall, nsw=nsw),
+                             f"{tag} b={b} acc={acc} nsw={nsw}")
+                self.compare("rbgs_solve_stream_keep",
+                             ls.rbgs_solve_stream(b, f, g, a, c, acc, wall,
+                                                  m.keep_vel, nsw),
+                             ls.rbgs_solve_stream_plain(b, f, g, a, c, acc,
+                                                        wall, m.keep_vel,
+                                                        nsw),
+                             f"{tag} b={b} acc={acc} nsw={nsw}")
+            for nsw in ls.KERNEL_NSW:
+                self.compare("project_stream",
+                             ps.project_stream(*vel, 15, wall, nsw),
+                             ps.project_stream_plain(*vel, 15, wall, nsw),
+                             f"{tag} nsw={nsw}")
+                self.compare("project_stream_masked",
+                             ps.project_stream_masked(*vel, m.fluid_i, 15,
+                                                      wall, nsw),
+                             ps.project_stream_masked_plain(
+                                 *vel, m.fluid_i, 15, wall, nsw),
+                             f"{tag} nsw={nsw}")
+            # against the resident route, on step-like velocities
+            for bb in range(4):
+                keep = m.keep_vel if bb else m.keep_scalar
+                self.compare("rbgs_solve_stream",
+                             ls.rbgs_solve_stream(bb, f, g, a, c, 15, wall),
+                             rbgs_solve(bb, f, g, a, c, 15, wall),
+                             f"{tag} b={bb}", ref="resident")
+                self.compare("rbgs_solve_stream_keep",
+                             ls.rbgs_solve_stream(bb, f, g, a, c, 15, wall,
+                                                  keep),
+                             rbgs_solve(bb, f, g, a, c, 15, wall, keep),
+                             f"{tag} b={bb}", ref="resident")
+            sv = self.step_like(rng, pad)
+            self.compare("project_stream",
+                         pad_bounds(ps.project_stream(*sv, 15, wall),
+                                    (1, 2, 3), wall),
+                         project_empty(*sv, 15, wall), f"{tag} + tail",
+                         ref="resident")
+            sv = self.step_like(rng, pad, m.keep_scalar)
+            self.compare("project_stream_masked",
+                         pad_bounds(ps.project_stream_masked(
+                             *sv, m.fluid_i, 15, wall), (1, 2, 3), wall,
+                             m.fluid_i, kv),
+                         project_masked(*sv, m.fluid_i, kv, 15, wall),
+                         f"{tag} + tail", ref="resident")
+
+            if main:
+                shapes = f"{W}x{H}x{D} shapes"
+                for name, kf, pf in (
+                        ("rbgs_solve_stream",
+                         lambda: ls.rbgs_solve_stream(b, f, g, a, c, 15),
+                         lambda: ls.rbgs_solve_stream_plain(b, f, g, a, c,
+                                                            15)),
+                        ("rbgs_solve_stream_keep",
+                         lambda: ls.rbgs_solve_stream(b, f, g, a, c, 15,
+                                                      keep=m.keep_vel),
+                         lambda: ls.rbgs_solve_stream_plain(
+                             b, f, g, a, c, 15, keep=m.keep_vel)),
+                        ("project_stream",
+                         lambda: ps.project_stream(*vel, 15),
+                         lambda: ps.project_stream_plain(*vel, 15)),
+                        ("project_stream_masked",
+                         lambda: ps.project_stream_masked(*vel, m.fluid_i,
+                                                          15),
+                         lambda: ps.project_stream_masked_plain(
+                             *vel, m.fluid_i, 15))):
+                    self.time_pair(name, kf, pf, 10, shapes)
+                self.stream_bounds(f, g, kv, vel, m.fluid_i, n, True)
+
+    def stream_bounds(self, f, g, kv, vel, fluid_i, n, record):
+        """The streamed wrappers' bounds at one shape: the solves read the
+        field, prev's interior (and keep) and write the field; the
+        projections read the three velocities (and fluid_i) and write three
+        interiors."""
+        torch = self.torch
+        out3 = torch.empty((3,) + tuple(kv.shape), device="cuda")
+        self.bound("rbgs_solve_stream", (f, g[1:-1, 1:-1, 1:-1], f),
+                   15 * OPS_PER_CELL["rbgs_solve"] * n, record)
+        self.bound("rbgs_solve_stream_keep",
+                   (f, g[1:-1, 1:-1, 1:-1], kv, f),
+                   15 * OPS_PER_CELL["rbgs_solve_keep"] * n, record)
+        # as K2 and K6: divergence, 15 sweeps, gradient and update
+        self.bound("project_stream", (*vel, out3), (16 + 8 * 15) * n, record)
+        self.bound("project_stream_masked", (*vel, fluid_i, out3),
+                   (64 + 9 * 15) * n, record)
+
+    def big_grids(self):
+        """The bench's six big configs through the entry point."""
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.utils.profiling import big_sphere
+        for W, H, D, steps in BIG:
+            p = SimParams(width=W, height=H, depth=D, mode="split",
+                          div_stats=False, step_stats=False)
+            for sphere in (False, True):
+                label = f"split {W}x{H}x{D}" + (" sphere" if sphere else "")
+                wt = WindTunnel(p, obstacles=big_sphere(W, H, D) if sphere
+                                else None, device="cuda")
+                if sphere:
+                    self.run_path(wt, steps, label, rbgs_solve_stream_keep=3,
+                                  project_stream_masked=2, advect_split=2,
+                                  pad_bounds_masked=4)
+                    self.check_scene(wt, label, twin=f"split {W}x{H}x{D}")
+                else:
+                    self.run_path(wt, steps, label, rbgs_solve_stream=3,
+                                  project_stream=2, advect_split=2,
+                                  pad_bounds=4)
+                    self.check_state(wt, label)
+                    self.twin_sums[label] = wt.density_sum()
+                if (W, H, D) == (256, 128, 128):
+                    self.kernel_vs_plain_steps(wt, 1)
+                ms = self.event_ms(wt.step, steps)
+                print(f"   {label}: kernel path {ms:.4f} ms/step "
+                      f"({p.n_cells / ms * 1e3:.4g} cell-updates/s)",
+                      flush=True)
+                del wt
+                self.torch.cuda.empty_cache()
+
+    def route_times(self):
+        """Per call at each big shape, the resident and the streamed route of
+        the solve and of the projection (with its pad_bounds tail), in turns
+        (resident, streamed, streamed, resident); the streamed wrappers'
+        bounds there; K4 and K4 masked against their plain versions at
+        512x256x256."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import (
+            linsolve_stream as ls, project_stream as ps)
+        from fluid_simulation_tpu_torch.kernels.bounds import (
+            pad_bounds, pad_bounds_plain)
+        from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
+        from fluid_simulation_tpu_torch.kernels.project import (
+            project_empty, project_masked)
+        from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.utils.profiling import big_sphere
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 3)
+        for W, H, D, _ in BIG:
+            pad = (D + 2, H + 2, W + 2)
+            m = build_masks(big_sphere(W, H, D), device="cuda")
+            kv = m.keep_vel[1:-1, 1:-1, 1:-1]
+            a, c = diffusion_coeffs(W, H, D, 0.05, 2e-5)
+            f, g = self.rand(rng, pad), self.rand(rng, pad)
+            vel = self.step_like(rng, pad, m.keep_scalar)
+            reps = 5 if W * H * D > (1 << 23) else 10
+            for label, res, st in (
+                    ("solve", lambda: rbgs_solve(1, f, g, a, c, 15),
+                     lambda: ls.rbgs_solve_stream(1, f, g, a, c, 15)),
+                    ("solve keep",
+                     lambda: rbgs_solve(1, f, g, a, c, 15, keep=m.keep_vel),
+                     lambda: ls.rbgs_solve_stream(1, f, g, a, c, 15,
+                                                  keep=m.keep_vel)),
+                    ("projection", lambda: project_empty(*vel, 15),
+                     lambda: pad_bounds(ps.project_stream(*vel, 15),
+                                        (1, 2, 3))),
+                    ("projection masked",
+                     lambda: project_masked(*vel, m.fluid_i, kv, 15),
+                     lambda: pad_bounds(ps.project_stream_masked(
+                         *vel, m.fluid_i, 15), (1, 2, 3), "reference",
+                         m.fluid_i, kv))):
+                r1, s1, s2, r2 = (self.event_ms(fn, reps)
+                                  for fn in (res, st, st, res))
+                print(f"   {W}x{H}x{D} {label:17s}: resident "
+                      f"{(r1 + r2) / 2:.4f} ms ({r1:.4f}, {r2:.4f}), "
+                      f"streamed {(s1 + s2) / 2:.4f} ms ({s1:.4f}, {s2:.4f})"
+                      f" per call", flush=True)
+            self.stream_bounds(f, g, kv, vel, m.fluid_i, W * H * D, False)
+            del f, g, vel
+        # K4 and K4 masked at the 512x256x256 shapes (m from the last grid)
+        smp3 = self.rand(rng, (3, D, H, W))
+        self.compare("pad_bounds", pad_bounds(smp3, (1, 2, 3)),
+                     pad_bounds_plain(smp3, (1, 2, 3)),
+                     f"{W}x{H}x{D} bs=(1,2,3)")
+        self.compare("pad_bounds_masked",
+                     pad_bounds(smp3, (1, 2, 3), "reference", m.fluid_i, kv),
+                     pad_bounds_plain(smp3, (1, 2, 3), "reference",
+                                      m.fluid_i, kv),
+                     f"{W}x{H}x{D} bs=(1,2,3)")
+        for name, masks in (("pad_bounds", ()),
+                            ("pad_bounds_masked", (m.fluid_i, kv))):
+            kf = lambda: pad_bounds(smp3, (1, 2, 3), "reference",  # noqa
+                                    *masks)
+            ms = self.event_ms(kf, 10)
+            print(f"   {name:14s} {W}x{H}x{D} shapes: kernel {ms:.4f} ms "
+                  f"per call (3 fields)", flush=True)
+            self.bound(name, (smp3, *masks, *kf()),
+                       3 * len(masks) * W * H * D, False)
+        torch.cuda.empty_cache()
+
     def times(self):
         from fluid_simulation_tpu_torch import WindTunnel
         from fluid_simulation_tpu_torch.utils.profiling import cells
         reps = {"split 128x64x64": 50, "compat 128x64x64": 20,
                 "split 256x128x128": 10, "split 128x64x64 sphere": 50,
                 "split 128x64x64 noslip+vorticity": 50}
-        for label, (p, obs) in cells().items():
-            n = reps[label]
+        todo = cells()
+        for label, n in reps.items():
+            p, obs = todo[label]
             runs = {True: [], False: []}
             for use_kernels in (True, False, False, True):
                 wt = WindTunnel(p.replace(use_pallas=use_kernels),
@@ -507,7 +800,37 @@ class Smoke:
                   f"{runs[False][1]:.4f})", flush=True)
 
 
-def main() -> int:
+# (key for --only, title, Smoke method), in the order they run
+PHASES = [
+    ("kernels", "kernels vs plain", "kernels"),
+    ("obstacle_kernels", "kernels vs plain: obstacle and vorticity kernels",
+     "obstacle_kernels"),
+    ("stream_kernels", "kernels vs plain: streamed big-grid kernels",
+     "stream_kernels"),
+    ("split", "split flagship 128x64x64, 100 steps", "split_flagship"),
+    ("compat", "compat parity 128x64x64, 100 steps", "compat_parity"),
+    ("sphere_split", "sphere split 128x64x64, 100 steps", "sphere_split"),
+    ("sphere_compat", "sphere compat 128x64x64, 20 steps", "sphere_compat"),
+    ("stl", "STL scene split 128x64x64, 100 steps", "stl_split"),
+    ("noslip", "noslip+vorticity split 128x64x64, 100 steps",
+     "noslip_vorticity"),
+    ("big_grids", "big grids: the bench's six configs, streamed",
+     "big_grids"),
+    ("route_times", "big grids: per-call times of both routes",
+     "route_times"),
+    ("times", "times", "times"),
+]
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if argv[0] != "--only" or not set(argv[1:]) <= {p[0] for p in PHASES}:
+            print(f"usage: chip_smoke.py [--only PHASE ...], PHASE in "
+                  f"{[p[0] for p in PHASES]}", file=sys.stderr)
+            return 2
+        only = set(argv[1:])
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "fluid_simulation_tpu_torch")):
         print("chip_smoke.py: the fluid_simulation_tpu_torch package is not "
@@ -549,22 +872,18 @@ def main() -> int:
         print(f"chip_smoke.py: FAILED phases: {smoke.failures}",
               file=sys.stderr)
         return 1
-    smoke.phase("kernels vs plain", smoke.kernels)
-    smoke.phase("kernels vs plain: obstacle and vorticity kernels",
-                smoke.obstacle_kernels)
-    smoke.phase("split flagship 128x64x64, 100 steps", smoke.split_flagship)
-    smoke.phase("compat parity 128x64x64, 100 steps", smoke.compat_parity)
-    smoke.phase("split 256x128x128, 10 steps", smoke.real_size)
-    smoke.phase("sphere split 128x64x64, 100 steps", smoke.sphere_split)
-    smoke.phase("sphere compat 128x64x64, 20 steps", smoke.sphere_compat)
-    smoke.phase("STL scene split 128x64x64, 100 steps", smoke.stl_split)
-    smoke.phase("noslip+vorticity split 128x64x64, 100 steps",
-                smoke.noslip_vorticity)
-    smoke.phase("times", smoke.times)
+    phases = PHASES if only is None else [ph for ph in PHASES
+                                          if ph[0] in only]
+    for _, title, method in phases:
+        smoke.phase(title, getattr(smoke, method))
     if smoke.failures:
         print(f"chip_smoke.py: FAILED phases: {smoke.failures}",
               file=sys.stderr)
         return 1
+    if only is not None:
+        print(f"chip_smoke.py: phases {sorted(only)} passed (a partial run "
+              f"prints no result line)", flush=True)
+        return 0
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -41,6 +41,37 @@ __device__ __forceinline__ long mask_index(int z, int y, int x, int msz,
          (x - 1);
 }
 
+// neighbour validity of the masked projection: fluid_i of the neighbour at
+// mask index m, 0 outside the interior
+__device__ __forceinline__ float nb(bool inside, const float* fl, long m) {
+  return inside ? fl[m] : 0.0f;
+}
+
+// Empty-scene gradient: central where both neighbours are in the interior,
+// one-sided where one is, zero where none is (simulation.cpp:322-357).
+__device__ __forceinline__ float gradient(bool has_p, bool has_m, float pp,
+                                          float pm, float pi, float inv_2h,
+                                          float inv_h) {
+  if (has_p && has_m) return __fmul_rn(__fsub_rn(pp, pm), inv_2h);
+  if (has_p) return __fmul_rn(__fsub_rn(pp, pi), inv_h);
+  if (has_m) return __fmul_rn(__fsub_rn(pi, pm), inv_h);
+  return 0.0f;
+}
+
+// Obstacle-scene gradient: ops/project.py::_one_axis_gradient's 0/1 mask
+// algebra, operation for operation.
+__device__ __forceinline__ float gradient_masked(float mp, float mm, float pp,
+                                                 float pm, float pi,
+                                                 float inv_2h, float inv_h) {
+  const float both = __fmul_rn(mp, mm);
+  const float central = __fmul_rn(__fsub_rn(pp, pm), inv_2h);
+  const float fwd = __fmul_rn(__fsub_rn(pp, pi), inv_h);
+  const float bwd = __fmul_rn(__fsub_rn(pi, pm), inv_h);
+  return __fadd_rn(__fadd_rn(__fmul_rn(both, central),
+                             __fmul_rn(__fsub_rn(mp, both), fwd)),
+                   __fmul_rn(__fsub_rn(mm, both), bwd));
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 inline unsigned cdiv(long n, long d) { return static_cast<unsigned>((n + d - 1) / d); }

@@ -13,13 +13,23 @@ show which kernels carried it:
 - ``pad_bounds``        (kernels/bounds.py)       one per padded stack
 - ``pad_bounds_masked`` (kernels/bounds.py)       one per masked padded stack
 - ``confinement``       (kernels/vorticity.py)    one per confinement
+- ``rbgs_solve_stream``      (kernels/linsolve_stream.py) one per streamed
+  empty-scene solve (big grids)
+- ``rbgs_solve_stream_keep`` (kernels/linsolve_stream.py) one per streamed
+  obstacle-scene solve
+- ``project_stream``         (kernels/project_stream.py)  one per streamed
+  empty projection
+- ``project_stream_masked``  (kernels/project_stream.py)  one per streamed
+  obstacle projection
 
 These counters are the package's only global state.
 """
 
 LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "project_masked": 0, "advect_split": 0, "pad_bounds": 0,
-            "pad_bounds_masked": 0, "confinement": 0}
+            "pad_bounds_masked": 0, "confinement": 0,
+            "rbgs_solve_stream": 0, "rbgs_solve_stream_keep": 0,
+            "project_stream": 0, "project_stream_masked": 0}
 
 
 def reset_launches() -> None:

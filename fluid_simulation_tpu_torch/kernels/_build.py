@@ -55,6 +55,12 @@ SIGNATURES = {
     "fst_curl": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "fst_confine": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                     _F, _P),
+    "fst_rbgs_sweep1": (_P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _P),
+    "fst_rbgs_pass": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I,
+                      _I, _P),
+    "fst_div_packed": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _P),
+    "fst_grad_packed": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _F,
+                        _P),
 }
 
 

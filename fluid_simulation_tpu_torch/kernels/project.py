@@ -32,32 +32,53 @@ def _coefficients(shape):
             np.float32(1.0) / (np.float32(2.0) * h))
 
 
-def project_empty_plain(vx, vy, vz, acc: int = 15,
-                        wall_mode: str = "reference"):
-    """The projection in plain torch, with the in-bounds selects of the TPU
-    kernel (equal in value to ``ops.project.project`` on an empty scene,
-    whose 0/1 mask products differ at most in the sign of a zero)."""
-    dtype, dev = vx.dtype, vx.device
-    D, H, W = (n - 2 for n in vx.shape)
-    nhh, inv_h, inv_2h = (as_scalar(x, dtype)
-                          for x in _coefficients(vx.shape))
-    ix = torch.arange(W, device=dev).reshape(1, 1, W)
-    iy = torch.arange(H, device=dev).reshape(1, H, 1)
-    iz = torch.arange(D, device=dev).reshape(D, 1, 1)
-    xp, xm, yp, ym, zp, zm = (ix < W - 1, ix > 0, iy < H - 1, iy > 0,
-                              iz < D - 1, iz > 0)
+def in_bounds(shape, device):
+    """The six in-bounds neighbour tests of a padded ``shape``'s interior,
+    broadcastable booleans (x+, x-, y+, y-, z+, z-)."""
+    D, H, W = (n - 2 for n in shape)
+    ix = torch.arange(W, device=device).reshape(1, 1, W)
+    iy = torch.arange(H, device=device).reshape(1, H, 1)
+    iz = torch.arange(D, device=device).reshape(D, 1, 1)
+    return (ix < W - 1, ix > 0, iy < H - 1, iy > 0, iz < D - 1, iz > 0)
 
-    div_val = (torch.where(xp, vx[1:-1, 1:-1, 2:], 0.0)
-               - torch.where(xm, vx[1:-1, 1:-1, :-2], 0.0)
-               + torch.where(yp, vy[1:-1, 2:, 1:-1], 0.0)
-               - torch.where(ym, vy[1:-1, :-2, 1:-1], 0.0)
-               + torch.where(zp, vz[2:, 1:-1, 1:-1], 0.0)
-               - torch.where(zm, vz[:-2, 1:-1, 1:-1], 0.0))
-    rhs = torch.zeros_like(vx)
-    rhs[1:-1, 1:-1, 1:-1] = nhh * div_val
-    p = relax(0, torch.zeros_like(vx), rhs, 1.0, 6.0, None, acc=acc,
-              solver="rbgs", wall_mode=wall_mode)
 
+def neighbour_masks(fl):
+    """nb_* (x+, x-, y+, y-, z+, z-) of an interior fluid mask: a neighbour
+    counts where it is fluid and in the interior (fl padded with a zero
+    shell, shifted)."""
+    flp = F.pad(fl, (1, 1, 1, 1, 1, 1))
+    return (flp[1:-1, 1:-1, 2:], flp[1:-1, 1:-1, :-2], flp[1:-1, 2:, 1:-1],
+            flp[1:-1, :-2, 1:-1], flp[2:, 1:-1, 1:-1], flp[:-2, 1:-1, 1:-1])
+
+
+def divergence_plain(vx, vy, vz, fl=None):
+    """The interior rhs of the Poisson solve, ``-0.5h * div``: in-bounds
+    selects in an empty scene, the fluid-neighbour masks times ``fl`` (the
+    interior fluid mask) in an obstacle scene."""
+    nhh = as_scalar(_coefficients(vx.shape)[0], vx.dtype)
+    if fl is None:
+        xp, xm, yp, ym, zp, zm = in_bounds(vx.shape, vx.device)
+        div_val = (torch.where(xp, vx[1:-1, 1:-1, 2:], 0.0)
+                   - torch.where(xm, vx[1:-1, 1:-1, :-2], 0.0)
+                   + torch.where(yp, vy[1:-1, 2:, 1:-1], 0.0)
+                   - torch.where(ym, vy[1:-1, :-2, 1:-1], 0.0)
+                   + torch.where(zp, vz[2:, 1:-1, 1:-1], 0.0)
+                   - torch.where(zm, vz[:-2, 1:-1, 1:-1], 0.0))
+        return nhh * div_val
+    nb_xp, nb_xm, nb_yp, nb_ym, nb_zp, nb_zm = neighbour_masks(fl)
+    div_val = (vx[1:-1, 1:-1, 2:] * nb_xp - vx[1:-1, 1:-1, :-2] * nb_xm
+               + vy[1:-1, 2:, 1:-1] * nb_yp - vy[1:-1, :-2, 1:-1] * nb_ym
+               + vz[2:, 1:-1, 1:-1] * nb_zp - vz[:-2, 1:-1, 1:-1] * nb_zm)
+    return nhh * div_val * fl
+
+
+def select_gradients(p):
+    """(gx, gy, gz) of padded ``p`` over the interior with the empty scene's
+    selects: central where both neighbours are in the interior, one-sided
+    where one is, zero where none is (out-of-interior values of ``p`` are
+    read but never selected)."""
+    _, inv_h, inv_2h = (as_scalar(x, p.dtype) for x in _coefficients(p.shape))
+    xp, xm, yp, ym, zp, zm = in_bounds(p.shape, p.device)
     p_i = p[1:-1, 1:-1, 1:-1]
 
     def grad(has_p, has_m, p_p, p_m):
@@ -66,11 +87,38 @@ def project_empty_plain(vx, vy, vz, acc: int = 15,
             torch.where(has_p, (p_p - p_i) * inv_h,
                         torch.where(has_m, (p_i - p_m) * inv_h, 0.0)))
 
-    grads = (grad(xp, xm, p[1:-1, 1:-1, 2:], p[1:-1, 1:-1, :-2]),
-             grad(yp, ym, p[1:-1, 2:, 1:-1], p[1:-1, :-2, 1:-1]),
-             grad(zp, zm, p[2:, 1:-1, 1:-1], p[:-2, 1:-1, 1:-1]))
+    return (grad(xp, xm, p[1:-1, 1:-1, 2:], p[1:-1, 1:-1, :-2]),
+            grad(yp, ym, p[1:-1, 2:, 1:-1], p[1:-1, :-2, 1:-1]),
+            grad(zp, zm, p[2:, 1:-1, 1:-1], p[:-2, 1:-1, 1:-1]))
+
+
+def masked_gradients(p, fl):
+    """(gx, gy, gz) of padded ``p`` over the interior in the obstacle
+    scene's 0/1 mask algebra (``ops.project._one_axis_gradient``), with the
+    fluid-neighbour masks of the interior fluid mask ``fl``."""
+    D, H, W = (n - 2 for n in p.shape)
+    h = grid_h(W, H, D)
+    nb_xp, nb_xm, nb_yp, nb_ym, nb_zp, nb_zm = neighbour_masks(fl)
+    return (
+        _one_axis_gradient(p, nb_xp, nb_xm, lambda q: q[1:-1, 1:-1, 2:],
+                           lambda q: q[1:-1, 1:-1, :-2], h, p.dtype),
+        _one_axis_gradient(p, nb_yp, nb_ym, lambda q: q[1:-1, 2:, 1:-1],
+                           lambda q: q[1:-1, :-2, 1:-1], h, p.dtype),
+        _one_axis_gradient(p, nb_zp, nb_zm, lambda q: q[2:, 1:-1, 1:-1],
+                           lambda q: q[:-2, 1:-1, 1:-1], h, p.dtype))
+
+
+def project_empty_plain(vx, vy, vz, acc: int = 15,
+                        wall_mode: str = "reference"):
+    """The projection in plain torch, with the in-bounds selects of the TPU
+    kernel (equal in value to ``ops.project.project`` on an empty scene,
+    whose 0/1 mask products differ at most in the sign of a zero)."""
+    rhs = torch.zeros_like(vx)
+    rhs[1:-1, 1:-1, 1:-1] = divergence_plain(vx, vy, vz)
+    p = relax(0, torch.zeros_like(vx), rhs, 1.0, 6.0, None, acc=acc,
+              solver="rbgs", wall_mode=wall_mode)
     outs = []
-    for b, v, g in zip((1, 2, 3), (vx, vy, vz), grads):
+    for b, v, g in zip((1, 2, 3), (vx, vy, vz), select_gradients(p)):
         v = v.clone()
         v[1:-1, 1:-1, 1:-1] = v[1:-1, 1:-1, 1:-1] - g
         outs.append(write_faces_(v, b, wall_mode))
@@ -125,36 +173,15 @@ def project_masked_plain(vx, vy, vz, fluid_i, keep_vel_i, acc: int = 15,
     ``empty_scene=False``). ``fluid_i`` and ``keep_vel_i`` are interior
     masks (``masks.fluid_i``, ``masks.keep_vel[1:-1, 1:-1, 1:-1]``)."""
     dtype = vx.dtype
-    D, H, W = (n - 2 for n in vx.shape)
-    nhh = as_scalar(_coefficients(vx.shape)[0], dtype)
     fl = fluid_i.to(dtype)
-    # a neighbour counts where it is fluid and in the interior: fluid_i
-    # padded with a zero shell, shifted
-    flp = F.pad(fl, (1, 1, 1, 1, 1, 1))
-    nb_xp, nb_xm = flp[1:-1, 1:-1, 2:], flp[1:-1, 1:-1, :-2]
-    nb_yp, nb_ym = flp[1:-1, 2:, 1:-1], flp[1:-1, :-2, 1:-1]
-    nb_zp, nb_zm = flp[2:, 1:-1, 1:-1], flp[:-2, 1:-1, 1:-1]
-
-    div_val = (vx[1:-1, 1:-1, 2:] * nb_xp - vx[1:-1, 1:-1, :-2] * nb_xm
-               + vy[1:-1, 2:, 1:-1] * nb_yp - vy[1:-1, :-2, 1:-1] * nb_ym
-               + vz[2:, 1:-1, 1:-1] * nb_zp - vz[:-2, 1:-1, 1:-1] * nb_zm)
     rhs = torch.zeros_like(vx)
-    rhs[1:-1, 1:-1, 1:-1] = nhh * div_val * fl
+    rhs[1:-1, 1:-1, 1:-1] = divergence_plain(vx, vy, vz, fl)
     # the scalar keep is fluid_i inside and 1 on the ghost shell
     keep_s = F.pad(fl, (1, 1, 1, 1, 1, 1), value=1.0)
     p = relax(0, torch.zeros_like(vx), rhs, 1.0, 6.0, keep_s, acc=acc,
               solver="rbgs", wall_mode=wall_mode)
-
-    h = grid_h(W, H, D)
-    grads = (
-        _one_axis_gradient(p, nb_xp, nb_xm, lambda q: q[1:-1, 1:-1, 2:],
-                           lambda q: q[1:-1, 1:-1, :-2], h, dtype),
-        _one_axis_gradient(p, nb_yp, nb_ym, lambda q: q[1:-1, 2:, 1:-1],
-                           lambda q: q[1:-1, :-2, 1:-1], h, dtype),
-        _one_axis_gradient(p, nb_zp, nb_zm, lambda q: q[2:, 1:-1, 1:-1],
-                           lambda q: q[:-2, 1:-1, 1:-1], h, dtype))
     outs = []
-    for b, v, g in zip((1, 2, 3), (vx, vy, vz), grads):
+    for b, v, g in zip((1, 2, 3), (vx, vy, vz), masked_gradients(p, fl)):
         v = v.clone()
         v[1:-1, 1:-1, 1:-1] = v[1:-1, 1:-1, 1:-1] - g * fl
         write_faces_(v, b, wall_mode)     # faces from the pre-keep edge

@@ -18,7 +18,8 @@ Devices. ``WindTunnel`` and ``init_state`` put the state on the card unless
 the caller asks for ``device="cpu"``. On the CPU every stage is plain torch.
 On a CUDA device with ``use_pallas`` the solves, projections, split
 advection, padding and vorticity confinement run the hand-written kernels
-(``kernels/``), in empty and obstacle scenes, and a configuration whose
+(``kernels/``), in empty and obstacle scenes; big grids stream their solves
+and projections (``kernels/linsolve_stream.py``), and a configuration whose
 kernels are not ported yet raises ``NotImplementedError`` instead of running
 plain torch. With ``use_pallas=False`` the step is plain torch on any
 device.
@@ -36,13 +37,15 @@ import numpy as np
 import torch
 
 from fluid_simulation_tpu_torch.config import SimParams
-from fluid_simulation_tpu_torch.kernels import _build
+from fluid_simulation_tpu_torch.kernels import _build, linsolve_stream
 from fluid_simulation_tpu_torch.kernels.advect_split import (
     advect_split, advect_split_plain)
 from fluid_simulation_tpu_torch.kernels.bounds import (
     pad_bounds, pad_bounds_plain)
 from fluid_simulation_tpu_torch.kernels.project import (
     project_empty, project_masked)
+from fluid_simulation_tpu_torch.kernels.project_stream import (
+    project_stream, project_stream_masked)
 from fluid_simulation_tpu_torch.kernels.vorticity import (
     confinement, confinement_plain)
 from fluid_simulation_tpu_torch.ops.advect import (
@@ -135,10 +138,20 @@ def _pad_bounds_tail(smp, bs, masks: SceneMasks, p: SimParams):
 
 
 def _project_dispatch(vx, vy, vz, masks: SceneMasks, p: SimParams):
-    """Projection with rbgs and ``use_pallas``: kernel 2 for empty scenes,
-    kernel 6 for obstacle scenes; the composable ops otherwise (other
-    solvers, or the plain path). Returns (vx, vy, vz)."""
+    """Projection with rbgs and ``use_pallas``: on big grids
+    (``linsolve_stream.streams``) the streamed kernels and the pad_bounds
+    tail, else kernel 2 for empty scenes and kernel 6 for obstacle scenes;
+    the composable ops otherwise (other solvers, or the plain path).
+    Returns (vx, vy, vz)."""
     if p.use_pallas and p.solver == "rbgs":
+        if linsolve_stream.streams(vx.shape):
+            if p.empty_scene:
+                smp = project_stream(vx, vy, vz, acc=p.acc,
+                                     wall_mode=p.wall_mode)
+            else:
+                smp = project_stream_masked(vx, vy, vz, masks.fluid_i,
+                                            acc=p.acc, wall_mode=p.wall_mode)
+            return _pad_bounds_tail(smp, (1, 2, 3), masks, p)
         if p.empty_scene:
             return project_empty(vx, vy, vz, acc=p.acc, wall_mode=p.wall_mode)
         return project_masked(vx, vy, vz, masks.fluid_i,

@@ -131,13 +131,17 @@ def linear_solver(
 ) -> torch.Tensor:
     """Run ``acc`` relaxation sweeps with boundary conditions after each
     (simulation.cpp:271). With ``use_pallas`` and ``solver='rbgs'`` this is
-    the kernel wrapper, which launches on a CUDA tensor or raises."""
+    a kernel wrapper, which launches on a CUDA tensor or raises: the
+    streamed solve on big grids (``kernels.linsolve_stream.streams``), the
+    resident one otherwise."""
     keep = None if empty_scene else (
         masks.keep_vel if b in (1, 2, 3) else masks.keep_scalar)
     if use_pallas and solver == "rbgs":
+        from fluid_simulation_tpu_torch.kernels import linsolve_stream
         from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
-        return rbgs_solve(b, f, prev, a, c, acc=acc, wall_mode=wall_mode,
-                          keep=keep)
+        fn = (linsolve_stream.rbgs_solve_stream
+              if linsolve_stream.streams(f.shape) else rbgs_solve)
+        return fn(b, f, prev, a, c, acc=acc, wall_mode=wall_mode, keep=keep)
     return relax(b, f, prev, a, c, keep, acc=acc, solver=solver,
                  wall_mode=wall_mode)
 

@@ -5,8 +5,10 @@ share, and device time by kernel, from ``torch.profiler``.
         [--cells LABEL ...] [--wall-only]
 
 profiles the cells on one CUDA device (split and compat at 128x64x64, split
-at 256x128x128, split at 128x64x64 with the bench's sphere and with no-slip
-walls and vorticity, and the split step on the plain torch path), prints
+at 128x64x64 with the bench's sphere and with no-slip walls and vorticity,
+the split step on the plain torch path, and the bench's big grids in split
+mode, 256x128x128, 256^3 and 512x256x256, each empty and with its sphere),
+prints
 one summary line and the top device operations per cell, and writes the
 numbers as JSON to ``--out``. ``--cells`` keeps only the cells with those
 labels; ``--wall-only`` times the host wall and the process's CPU time
@@ -104,6 +106,31 @@ def flagship_sphere() -> np.ndarray:
                       radius=10)
 
 
+# the JAX bench's big grids (W, H, D) and their spheres (bench.py:227-263)
+BIG_SPHERES = {(256, 128, 128): dict(cx=85, cy=64, cz=64, radius=20),
+               (256, 256, 256): dict(cx=48, cy=128, cz=128, radius=40),
+               (512, 256, 256): dict(cx=48, cy=128, cz=128, radius=40)}
+
+
+def big_sphere(width: int, height: int, depth: int) -> np.ndarray:
+    """The JAX bench's sphere scene of one of its big grids."""
+    return add_sphere(empty_obstacles(width, height, depth),
+                      **BIG_SPHERES[(width, height, depth)])
+
+
+def big_cells() -> Dict[str, Tuple[SimParams, Optional[np.ndarray]]]:
+    """The bench's six big configs in split mode, each empty and with its
+    sphere: the streamed route (``kernels/linsolve_stream.py``). Building
+    the spheres takes ~1 GB of host memory at 512x256x256."""
+    split = SimParams(div_stats=False, step_stats=False, mode="split")
+    out = {}
+    for (w, h, d) in BIG_SPHERES:
+        p = split.replace(width=w, height=h, depth=d)
+        out[f"split {w}x{h}x{d}"] = (p, None)
+        out[f"split {w}x{h}x{d} sphere"] = (p, big_sphere(w, h, d))
+    return out
+
+
 def cells() -> Dict[str, Tuple[SimParams, Optional[np.ndarray]]]:
     """The cells on the kernel path, as chip_smoke.py times them: label ->
     (params, padded obstacle field or None for the empty tunnel)."""
@@ -143,6 +170,7 @@ def main(argv=None) -> int:
     todo = cells()
     split, _ = todo["split 128x64x64"]
     todo["split 128x64x64 plain"] = (split.replace(use_pallas=False), None)
+    todo.update(big_cells())
     if args.cells:
         unknown = set(args.cells) - set(todo)
         if unknown:

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_split as k3, bounds as k4, linsolve as k1,
-    project as k2, reset_launches, vorticity as k10)
+    linsolve_stream as k11, project as k2, project_stream as k14,
+    reset_launches, vorticity as k10)
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
 from fluid_simulation_tpu_torch.scene.masks import build_masks
@@ -125,6 +126,46 @@ def stub_k10(vx, vy, vz, keep_vel_i, w, mag, outs, eps, dt):
         dst.copy_(src)
 
 
+def stub_sweep1(field, rhs_i, out, a, c):
+    interior = [n - 2 for n in field.shape]
+    _operand(field, field.shape)
+    _operand(out, interior)
+    _mask(rhs_i, interior)
+    _distinct(field, out)
+    out.copy_(k11.sweep1_plain(field, rhs_i, a, c))
+
+
+def stub_pass(fin, rhs_i, keep_i, out, b, a, c, nsw, wall_mode):
+    for t in (fin, out):
+        _operand(t, fin.shape)
+    for m in (rhs_i,) if keep_i is None else (rhs_i, keep_i):
+        _mask(m, fin.shape)
+    assert nsw in k11.KERNEL_NSW
+    _distinct(fin, out, rhs_i)
+    out.copy_(k11.pass_plain(fin, rhs_i, keep_i, b, a, c, nsw, wall_mode))
+
+
+def stub_div(vx, vy, vz, fluid_i, rhs):
+    for t in (vx, vy, vz):
+        _operand(t, vx.shape)
+    _operand(rhs, [n - 2 for n in vx.shape])
+    if fluid_i is not None:
+        _mask(fluid_i, rhs.shape)
+    _distinct(vx, vy, vz, rhs)
+    rhs.copy_(k2.divergence_plain(vx, vy, vz, fluid_i))
+
+
+def stub_grad(vx, vy, vz, fpre, fluid_i, out):
+    for t in (vx, vy, vz):
+        _operand(t, vx.shape)
+    _operand(fpre, [n - 2 for n in vx.shape])
+    _operand(out, [3] + list(fpre.shape))
+    if fluid_i is not None:
+        _mask(fluid_i, fpre.shape)
+    _distinct(vx, vy, vz, fpre, out)
+    out.copy_(k14.gradient_packed_plain(vx, vy, vz, fpre, fluid_i))
+
+
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
@@ -132,7 +173,11 @@ def card(monkeypatch):
     for mod, name, stub in ((k1, "_launch", stub_k1), (k2, "_launch", stub_k2),
                             (k2, "_launch_masked", stub_k6),
                             (k3, "_launch", stub_k3), (k4, "_launch", stub_k4),
-                            (k10, "_launch", stub_k10)):
+                            (k10, "_launch", stub_k10),
+                            (k11, "_launch_sweep1", stub_sweep1),
+                            (k11, "_launch_pass", stub_pass),
+                            (k14, "_launch_div", stub_div),
+                            (k14, "_launch_grad", stub_grad)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -152,12 +197,21 @@ def _random_state(p, seed=0):
     return [torch.tensor(f, dtype=torch.float32) for f in fields]
 
 
-def _run_two_steps(p, obstacles=None):
+def _run_two_steps(p, obstacles=None, zero_edges=False):
     """Two steps through the stubbed kernel branch from a random state;
     the per-step launch counts, after checking that the kernel branch
-    computes what the plain step computes."""
+    computes what the plain step computes. ``zero_edges`` zeroes the ghost
+    edges and corners, as every state of a run has them: the streamed
+    projection's pad_bounds tail writes them 0 where the resident one and
+    the plain step pass them through."""
     wt = WindTunnel(p, obstacles=obstacles, device=CPU)
-    wt.state = FluidState(*_random_state(p))
+    state = _random_state(p)
+    if zero_edges:
+        shell = torch.zeros(p.padded_shape)
+        shell[1:-1, 1:-1, :] = shell[1:-1, :, 1:-1] = 1.0
+        shell[:, 1:-1, 1:-1] = 1.0
+        state = [f * shell for f in state]
+    wt.state = FluidState(*state)
     start = wt.state
     wt.simulate(2)
     per_step = {k: n / 2 for k, n in LAUNCHES.items()}
@@ -205,6 +259,52 @@ def test_obstacle_and_vorticity_step_launch_counts(card, mode, scene, change,
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode, **change)
     obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
     assert _run_two_steps(p, obs) == _counts(**nonzero)
+
+
+# the JAX bench's big configs (bench.py:227-263): interior (W, H, D)
+BIG_GRIDS = [(256, 128, 128), (256, 256, 256), (512, 256, 256)]
+
+
+def test_stream_route_by_shape():
+    """The route constant alone: the 128x64x64 class stays resident, each of
+    the bench's big grids (empty and sphere alike) streams."""
+    def padded(w, h, d):
+        return (d + 2, h + 2, w + 2)
+
+    assert not k11.streams(padded(128, 64, 64))
+    assert not k11.streams(padded(16, 8, 8))
+    for dims in BIG_GRIDS:
+        assert k11.streams(padded(*dims)), dims
+    assert k11.NSW in k11.KERNEL_NSW
+
+
+@pytest.mark.parametrize("streamed", [True, False])
+@pytest.mark.parametrize("scene,change", [
+    (None, {}), (SPHERE, {}), (None, dict(wall_mode="noslip", vorticity=5.0))])
+def test_streamed_step_launch_counts(card, monkeypatch, streamed, scene,
+                                     change):
+    """With the route constant lowered to 16x8x8, the production split step
+    streams its 3 solves and 2 projections and pads 4 stacks (the
+    projections' tails); as shipped, the same step keeps the resident
+    counts. Both equal the plain step (``_run_two_steps``)."""
+    if streamed:
+        monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
+    p = SimParams(width=W, height=H, depth=D, acc=5, mode="split", **change)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    vort = dict(confinement=1) if change else {}
+    if streamed and scene:
+        want = dict(rbgs_solve_stream_keep=3, project_stream_masked=2,
+                    advect_split=2, pad_bounds_masked=4)
+    elif streamed:
+        want = dict(rbgs_solve_stream=3, project_stream=2, advect_split=2,
+                    pad_bounds=4)
+    elif scene:
+        want = dict(rbgs_solve_keep=3, project_masked=2, advect_split=2,
+                    pad_bounds_masked=2)
+    else:
+        want = dict(rbgs_solve=3, project_empty=2, advect_split=2,
+                    pad_bounds=2)
+    assert _run_two_steps(p, obs, zero_edges=True) == _counts(**want, **vort)
 
 
 def test_plain_reference_run_launches_nothing(card):
@@ -256,6 +356,25 @@ def test_wrappers_refuse_unported_operands(card):
                       keep_i=torch.ones((W, H, D)).transpose(0, 2))
     with pytest.raises(ValueError, match="expected"):
         k10.confinement(f, f.clone(), f.clone(), torch.ones(PAD), 5.0, 0.05)
+    # the streamed wrappers
+    with pytest.raises(NotImplementedError, match="A11"):
+        k11.rbgs_solve_stream(0, bf, bf.clone(), 1.0, 6.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        k11.rbgs_solve_stream(0, f.transpose(0, 2), f.transpose(0, 2).clone(),
+                              1.0, 6.0)
+    with pytest.raises(ValueError, match="shape"):
+        k11.rbgs_solve_stream(1, f, f.clone(), 0.5, 4.0, keep=ones_i)
+    with pytest.raises(ValueError, match="nsw"):
+        k11.rbgs_solve_stream(1, f, f.clone(), 0.5, 4.0, nsw=3)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k14.project_stream(bf, bf.clone(), bf.clone())
+    with pytest.raises(ValueError, match="shape"):
+        k14.project_stream(f, f.clone(), torch.zeros((4, 4, 4)))
+    with pytest.raises(ValueError, match="x stride"):
+        k14.project_stream_masked(f, f.clone(), f.clone(),
+                                  torch.ones((W, H, D)).transpose(0, 2))
+    with pytest.raises(ValueError, match="nsw"):
+        k14.project_stream_masked(f, f.clone(), f.clone(), ones_i, nsw=0)
     assert set(LAUNCHES.values()) == {0}
 
 
@@ -303,10 +422,20 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out6 = k2.project_masked(vx, vy, vz, m.fluid_i, kv, acc=2)
     out7 = k4.pad_bounds(out3, (1, 2), fluid_i=m.fluid_i, keep_i=kv)
     out8 = k10.confinement(vx, vy, vz, kv, 5.0, 0.05)
+    out9 = k11.rbgs_solve_stream(1, vx, g, 0.5, 4.0, acc=4)
+    out10 = k11.rbgs_solve_stream(1, vx, g, 0.5, 4.0, acc=4,
+                                  keep=m.keep_vel)
+    out11 = k14.project_stream(vx, vy, vz, acc=3)
+    out12 = k14.project_stream_masked(vx, vy, vz, m.fluid_i, acc=3)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
-    for t in (out1, *out2, out5, *out6, *out8):
+    for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
+    # the streamed wrappers give what their plain versions give
+    assert torch.equal(out9, k11.rbgs_solve_stream_plain(1, vx, g, 0.5, 4.0,
+                                                         4))
+    assert torch.equal(out12, k14.project_stream_masked_plain(
+        vx, vy, vz, m.fluid_i, acc=3))
     assert len(out4) == 2 and out4[0].shape == PAD
     assert len(out7) == 2 and out7[1].shape == PAD
     assert LAUNCHES == {k: 1 for k in LAUNCHES}
@@ -340,7 +469,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_sources_and_sign_mask():
     names = {s.name for s in _build.sources()}
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
-            "vorticity.cu", "common.cuh"} <= names
+            "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
+            "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
     assert _build.neg_mask([(-1.0, 1.0, 1.0), (1.0, -1.0, 1.0),

@@ -6,7 +6,7 @@ import torch
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.utils.profiling import (
-    busy_us, cells, host_ms, step_breakdown)
+    BIG_SPHERES, big_sphere, busy_us, cells, host_ms, step_breakdown)
 
 torch.set_num_threads(1)
 
@@ -54,3 +54,17 @@ def test_cells_are_the_slice_on_the_kernel_path():
         split.replace(wall_mode="noslip", vorticity=5.0), None)
     assert not any(p.vorticity for label, (p, _) in c.items()
                    if "vorticity" not in label)
+
+
+def test_big_grids_are_the_bench_configs():
+    """The big cells' grids and spheres are the JAX bench's (bench.py:
+    227-263); only the 256x128x128 sphere is built here, the others cost a
+    GB of host memory."""
+    assert list(BIG_SPHERES) == [(256, 128, 128), (256, 256, 256),
+                                 (512, 256, 256)]
+    assert BIG_SPHERES[(256, 256, 256)] == BIG_SPHERES[(512, 256, 256)] == \
+        dict(cx=48, cy=128, cz=128, radius=40)
+    obs = big_sphere(256, 128, 128)
+    assert obs.shape == (130, 130, 258)
+    assert obs[64, 64, 85] == 1.0 and obs[64, 64, 106] == 0.0
+    assert obs[0].sum() == obs[:, 0].sum() == obs[..., 0].sum() == 0.0
