@@ -49,7 +49,25 @@ final ``ok`` line):
    projection (resident and streamed, in turns), and K4 / K4 masked
    against their plain versions at 512x256x256 (the shapes of the
    never-routed streamed padding it stands for);
-10. ms/step of the kernel path and the plain path, timed with CUDA events.
+10. the variant kernels against their plain versions, bitwise: the
+    trilinear gather (K9) at 128x64x64 on random backtraces reaching 10+
+    cells and on a sphere state after 20 compat steps, beside
+    ``torch.nn.functional.grid_sample`` (the one PyTorch call that samples
+    trilinearly; its time and its difference, never 0); the fused
+    three-field solve (K5) empty, with keep and with no-slip walls, also
+    against three K1 calls; K1 unpacked with a random keep that is 0 on
+    parts of the ghost shell; the fused-backtrace split advection (K8) on
+    a stack of 3. Their times and bounds;
+11. compat with ``advect_window=1`` for 100 steps: the parity gate, 3/2/4
+    solves/projections/gathers per step, the final state bitwise equal to
+    the window-0 run's, ms/step of both; its sphere twin for 20 steps
+    (solids exactly 0, equal to the window-0 twin);
+12. fast with ``advect_window=1`` against fast without, 100 steps: bitwise
+    equal states, the residual bounds, ms/step of both;
+13. split with the fused three-field diffusion forced on against the
+    default (gated off), empty and sphere, 100 steps: bitwise equal
+    states, one ``rbgs_solve3`` per step, ms/step of both;
+14. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -60,6 +78,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -110,11 +129,26 @@ KERNELS = {
     "project_stream_masked": (
         "fluid_simulation_tpu_torch/csrc/project_stream.cu",
         "fluid_simulation_tpu/kernels/project_stream.py:504"),
+    # compat/fast advection with advect_window > 0 (B19)
+    "trilinear_gather": ("fluid_simulation_tpu_torch/csrc/trilinear.cu",
+                         "fluid_simulation_tpu/kernels/advect_compat.py:150"),
+    # the variants (B16, B21, B18): gated off, never routed, opt-in in the
+    # JAX package; K8 shares K3's pass kernel
+    "rbgs_solve3": ("fluid_simulation_tpu_torch/csrc/rbgs.cu",
+                    "fluid_simulation_tpu/kernels/linsolve_pallas.py:351"),
+    "rbgs_solve_unpacked": (
+        "fluid_simulation_tpu_torch/csrc/rbgs.cu",
+        "fluid_simulation_tpu/kernels/linsolve_pallas.py:80"),
+    "advect_split_fused": (
+        "fluid_simulation_tpu_torch/csrc/advect_split.cu",
+        "fluid_simulation_tpu/kernels/advect_pallas.py:337"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
 OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
-                "pad_bounds_masked": 2, "confinement": 53}
+                "pad_bounds_masked": 2, "confinement": 53,
+                # 3 floors, 3 fractions, 7 lerps of 3
+                "trilinear_gather": 27}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -357,6 +391,10 @@ class Smoke:
                         device="cuda")
         self.run_path(wt, 100, "compat 3/2/0/0 per step", rbgs_solve=3,
                       project_empty=2)
+        self.check_parity(wt)
+
+    def check_parity(self, wt):
+        """The reference's own print after 100 compat steps at 128x64x64."""
         dsum = wt.density_sum()
         dmax = wt.field_ranges()["density"][1]
         print(f"   density_sum={dsum:.6g} (ref {REF_SUM}, "
@@ -767,12 +805,247 @@ class Smoke:
                             ("pad_bounds_masked", (m.fluid_i, kv))):
             kf = lambda: pad_bounds(smp3, (1, 2, 3), "reference",  # noqa
                                     *masks)
-            ms = self.event_ms(kf, 10)
-            print(f"   {name:14s} {W}x{H}x{D} shapes: kernel {ms:.4f} ms "
-                  f"per call (3 fields)", flush=True)
+            pf = lambda: pad_bounds_plain(smp3, (1, 2, 3),  # noqa: E731
+                                          "reference", *masks)
+            ms, pms = self.event_ms(kf, 10), self.event_ms(pf, 5)
+            print(f"   {name:14s} {W}x{H}x{D} shapes: kernel {ms:.4f} ms, "
+                  f"plain {pms:.4f} ms per call (3 fields)", flush=True)
             self.bound(name, (smp3, *masks, *kf()),
                        3 * len(masks) * W * H * D, False)
         torch.cuda.empty_cache()
+
+    def same_state(self, a, b, label):
+        """Two runs' states must agree bit for bit."""
+        err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        print(f"   {label}: max abs diff {err:.3g} (bound 0: bitwise)",
+              flush=True)
+        self.check(err == 0.0, f"{label}: states differ by {err}")
+
+    def ms_ab(self, label, arms, reps):
+        """ms/step of two runs in turns (first, second, second, first); each
+        arm is ``(name, one-step function)``."""
+        (na, fa), (nb, fb) = arms
+        ta1, tb1, tb2, ta2 = (self.event_ms(f, reps) for f in (fa, fb, fb, fa))
+        print(f"   {label}: {na} {(ta1 + ta2) / 2:.4f} ms/step ({ta1:.4f}, "
+              f"{ta2:.4f}), {nb} {(tb1 + tb2) / 2:.4f} ms/step ({tb1:.4f}, "
+              f"{tb2:.4f})", flush=True)
+
+    @contextlib.contextmanager
+    def solve3_gate(self):
+        """The step's fused three-field diffusion forced on."""
+        from fluid_simulation_tpu_torch.models import windtunnel as wtm
+        gate = wtm._diffuse3_applicable
+        wtm._diffuse3_applicable = lambda p: True
+        try:
+            yield
+        finally:
+            wtm._diffuse3_applicable = gate
+
+    def variant_kernels(self):
+        """K9, K5, K1 unpacked and K8 against their plain versions at the
+        128x64x64 shapes; K9 also beside grid_sample."""
+        import numpy as np
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.kernels.advect_compat import (
+            trilinear_gather_window)
+        from fluid_simulation_tpu_torch.kernels.advect_split import (
+            advect_split_fused, advect_split_plain)
+        from fluid_simulation_tpu_torch.kernels.linsolve import (
+            rbgs_solve, rbgs_solve3, rbgs_solve3_plain, rbgs_solve_plain)
+        from fluid_simulation_tpu_torch.ops.advect import (
+            backtrace, trilinear_gather)
+        from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 4)
+        W, H, D = 128, 64, 64
+        pad, n = (D + 2, H + 2, W + 2), W * H * D
+        interior = (D, H, W)
+
+        # K9 on random backtraces, y/z offsets up to 16 cells
+        prev = self.rand(rng, pad)
+        vel = [self.rand(rng, interior, lo, hi)
+               for lo, hi in ((-20.0, 40.0), (-5.0, 5.0), (-5.0, 5.0))]
+        xb, yb, zb = backtrace(*vel, 0.05, W, H, D, torch.float32)
+        yi = torch.arange(1, H + 1, device="cuda").view(1, H, 1)
+        zi = torch.arange(1, D + 1, device="cuda").view(D, 1, 1)
+        reach = int(max((torch.floor(yb) - yi).abs().max(),
+                        (torch.floor(zb) - zi).abs().max()))
+        self.check(reach >= 10, f"backtraces reach only {reach} cells")
+        k9 = lambda: trilinear_gather_window(prev, xb, yb, zb)  # noqa: E731
+        p9 = lambda: trilinear_gather(prev, xb, yb, zb)         # noqa: E731
+        self.compare("trilinear_gather", k9(), p9(),
+                     f"128x64x64 reach {reach} cells")
+        # K9 on a sphere state after 20 compat steps
+        wt = WindTunnel(SimParams(div_stats=False, step_stats=False),
+                        obstacles=flagship_sphere(), device="cuda")
+        wt.simulate(20)
+        st = wt.state
+        sb = backtrace(*(f[1:-1, 1:-1, 1:-1] for f in st[:3]), wt.params.dt,
+                       W, H, D, torch.float32)
+        for name, f in zip(("vx", "vy", "vz", "dens"), st):
+            self.compare("trilinear_gather", trilinear_gather_window(f, *sb),
+                         trilinear_gather(f, *sb),
+                         f"sphere compat step 20 {name}")
+        # the one PyTorch call that samples trilinearly: grid_sample with
+        # the coordinates mapped to [-1, 1] (align_corners: -1 is index 0)
+        grid = torch.stack([c * (2.0 / (m + 1)) - 1.0 for c, m in
+                            ((xb, W), (yb, H), (zb, D))], dim=-1)[None]
+        inp = prev[None, None]
+        lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+            inp, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        lib_err = float((lib()[0, 0] - k9()).abs().max())
+        self.time_pair("trilinear_gather", k9, p9, 50)
+        lib_ms = self.event_ms(lib, 50)
+        print(f"   grid_sample    128x64x64: {lib_ms:.4f} ms per call, "
+              f"max|grid_sample-kernel| = {lib_err:.3g} (another "
+              f"arithmetic: not a port, never on a path)", flush=True)
+        self.bound("trilinear_gather", (prev, xb, yb, zb, k9()),
+                   OPS_PER_CELL["trilinear_gather"] * n)
+        self.kern["trilinear_gather"]["library_ms"] = lib_ms
+
+        # K5 empty, with keep, with keep and no-slip walls; also against
+        # three K1 calls
+        a, c = diffusion_coeffs(W, H, D, 0.05, 2e-5)
+        fs = [self.rand(rng, pad) for _ in range(3)]
+        ps = [self.rand(rng, pad) for _ in range(3)]
+        m = build_masks(flagship_sphere(), device="cuda")
+        for label, keep, wall in (("empty", None, "reference"),
+                                  ("keep", m.keep_vel, "reference"),
+                                  ("keep noslip", m.keep_vel, "noslip")):
+            got = rbgs_solve3((1, 2, 3), *fs, *ps, a, c, 15, wall, keep)
+            self.compare("rbgs_solve3", got, rbgs_solve3_plain(
+                (1, 2, 3), *fs, *ps, a, c, 15, wall, keep),
+                f"128x64x64 {label}")
+            self.compare("rbgs_solve3", got, tuple(
+                rbgs_solve(b, f, p, a, c, 15, wall, keep)
+                for b, f, p in zip((1, 2, 3), fs, ps)), f"128x64x64 {label}",
+                ref="3 K1")
+        for label, keep in (("keep", m.keep_vel), ("empty", None)):
+            k5 = lambda: rbgs_solve3((1, 2, 3), *fs, *ps,  # noqa: E731
+                                     a, c, 15, keep=keep)
+            p5 = lambda: rbgs_solve3_plain((1, 2, 3), *fs,  # noqa: E731
+                                           *ps, a, c, 15, keep=keep)
+            k1x3 = lambda: [rbgs_solve(b, f, p, a, c, 15,  # noqa: E731
+                                       keep=keep)
+                            for b, f, p in zip((1, 2, 3), fs, ps)]
+            # the empty form's times go to the result line
+            if keep is None:
+                self.time_pair("rbgs_solve3", k5, p5, 20)
+            else:
+                print(f"   rbgs_solve3    keep: kernel "
+                      f"{self.event_ms(k5, 20):.4f} ms, plain "
+                      f"{self.event_ms(p5, 5):.4f} ms per call", flush=True)
+            print(f"   rbgs_solve3    {label}: three K1 calls "
+                  f"{self.event_ms(k1x3, 20):.4f} ms", flush=True)
+        ps_i = [p[1:-1, 1:-1, 1:-1] for p in ps]
+        self.bound("rbgs_solve3", (*fs, *ps_i, *fs),
+                   3 * 15 * OPS_PER_CELL["rbgs_solve"] * n)
+        self.bound("rbgs_solve3", (*fs, *ps_i, m.keep_vel[1:-1, 1:-1, 1:-1],
+                                   *fs),
+                   3 * 15 * OPS_PER_CELL["rbgs_solve_keep"] * n, False)
+
+        # K1 unpacked: a random 0/1 keep, 0 on parts of every ghost face and
+        # on ghost edges and corners
+        keep = (self.rand(rng, pad, 0.0, 1.0) > 0.2).float()
+        keep[0, 0, :] = keep[-1, :, 0] = keep[:, -1, -1] = 0.0
+        f, g = fs[0], ps[0]
+        k1u = lambda: rbgs_solve(1, f, g, a, c, 15,  # noqa: E731
+                                 keep=keep, packed=False)
+        p1u = lambda: rbgs_solve_plain(1, f, g, a, c, 15,  # noqa: E731
+                                       keep=keep)
+        got = k1u()
+        self.compare("rbgs_solve_unpacked", got, p1u(),
+                     "128x64x64 ghost-zero keep")
+        packed = rbgs_solve(1, f, g, a, c, 15, keep=keep)
+        print(f"   rbgs_solve_unpacked vs packed on that keep: max abs diff "
+              f"{float((got - packed).abs().max()):.3g} (the forms differ "
+              f"there)", flush=True)
+        self.time_pair("rbgs_solve_unpacked", k1u, p1u, 20)
+        self.bound("rbgs_solve_unpacked", (f, g[1:-1, 1:-1, 1:-1], keep, f),
+                   15 * OPS_PER_CELL["rbgs_solve_keep"] * n)
+        self.kern["rbgs_solve_unpacked"]["launches"] = 0   # no route
+
+        # K8 on a stack of 3
+        vx = self.rand(rng, pad, -20.0, 40.0)
+        vy, vz = (self.rand(rng, pad, -3.0, 3.0) for _ in range(2))
+        stack = torch.stack([self.rand(rng, pad) for _ in range(3)])
+        k8 = lambda: advect_split_fused(stack, vx, vy, vz, 0.05)  # noqa: E731
+        p8 = lambda: advect_split_plain(stack, vx, vy, vz, 0.05)  # noqa: E731
+        self.compare("advect_split_fused", k8(), p8(), "128x64x64 stack of 3")
+        self.time_pair("advect_split_fused", k8, p8, 50)
+        D2, H2 = D + 2, H + 2
+        self.bound("advect_split_fused", (stack, vx, vy, vz, k8()),
+                   (6 + 3 * 3) * (D2 * H2 * W + D2 * H * W + n))
+        self.kern["advect_split_fused"]["launches"] = 0    # no route
+
+    def compat_window(self):
+        """Compat with advect_window=1 through the entry point: the parity
+        gate, the gathers' counts, bitwise equal to the window-0 run."""
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        base = SimParams(div_stats=False, step_stats=False)
+        wt = WindTunnel(base.replace(advect_window=1), device="cuda")
+        self.run_path(wt, 100, "compat window 3/2/4 per step", rbgs_solve=3,
+                      project_empty=2, trilinear_gather=4)
+        self.check_parity(wt)
+        wt0 = WindTunnel(base, device="cuda")
+        wt0.simulate(100)
+        self.same_state(wt.state, wt0.state, "compat window 1 vs 0, 100 steps")
+        self.ms_ab("compat 128x64x64", (("window 0", wt0.step),
+                                        ("window 1", wt.step)), 20)
+        ws = WindTunnel(base.replace(advect_window=1),
+                        obstacles=flagship_sphere(), device="cuda")
+        self.run_path(ws, 20, "sphere compat window", rbgs_solve_keep=3,
+                      project_masked=2, trilinear_gather=4)
+        self.check_scene(ws, "sphere compat window 128x64x64")
+        ws0 = WindTunnel(base, obstacles=flagship_sphere(), device="cuda")
+        ws0.simulate(20)
+        self.same_state(ws.state, ws0.state,
+                        "sphere compat window 1 vs 0, 20 steps")
+
+    def fast_window(self):
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        base = SimParams(mode="fast", div_stats=False, step_stats=False)
+        wt = WindTunnel(base.replace(advect_window=1), device="cuda")
+        self.run_path(wt, 100, "fast window", rbgs_solve=3, project_empty=2,
+                      trilinear_gather=4, pad_bounds=1)
+        self.check_state(wt, "fast window 128x64x64")
+        wt0 = WindTunnel(base, device="cuda")
+        wt0.simulate(100)
+        self.same_state(wt.state, wt0.state, "fast window 1 vs 0, 100 steps")
+        self.ms_ab("fast 128x64x64", (("window 0", wt0.step),
+                                      ("window 1", wt.step)), 20)
+
+    def solve3_ab(self):
+        """Split with the fused three-field diffusion forced on against the
+        default (gated off), as the JAX package measured it on its own
+        hardware; the gate stays off."""
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        p = SimParams(mode="split", div_stats=False, step_stats=False)
+        for label, obs in (("split 128x64x64", None),
+                           ("sphere split 128x64x64", flagship_sphere())):
+            counts = (dict(project_empty=2, pad_bounds=2) if obs is None else
+                      dict(project_masked=2, pad_bounds_masked=2))
+            forced = WindTunnel(p, obstacles=obs, device="cuda")
+            with self.solve3_gate():
+                self.run_path(forced, 100, f"{label} solve3 forced",
+                              rbgs_solve3=1, advect_split=2, **counts)
+            default = WindTunnel(p, obstacles=obs, device="cuda")
+            default.simulate(100)
+            self.same_state(forced.state, default.state,
+                            f"{label} solve3 forced vs default, 100 steps")
+
+            def forced_step():
+                with self.solve3_gate():
+                    forced.step()
+
+            self.ms_ab(label, (("default", default.step),
+                               ("solve3 forced", forced_step)), 50)
 
     def times(self):
         from fluid_simulation_tpu_torch import WindTunnel
@@ -818,6 +1091,13 @@ PHASES = [
      "big_grids"),
     ("route_times", "big grids: per-call times of both routes",
      "route_times"),
+    ("variant_kernels", "kernels vs plain: trilinear gather and the variants",
+     "variant_kernels"),
+    ("compat_window", "compat with advect_window=1, 100 steps",
+     "compat_window"),
+    ("fast_window", "fast with advect_window=1, 100 steps", "fast_window"),
+    ("solve3_ab", "split with the fused three-field diffusion forced on",
+     "solve3_ab"),
     ("times", "times", "times"),
 ]
 

@@ -21,6 +21,14 @@ show which kernels carried it:
   empty projection
 - ``project_stream_masked``  (kernels/project_stream.py)  one per streamed
   obstacle projection
+- ``trilinear_gather``       (kernels/advect_compat.py)   one per trilinear
+  sample of compat or fast advection with ``advect_window > 0``
+- ``rbgs_solve3``            (kernels/linsolve.py)        one per fused
+  three-field diffusion (gated off in the step, as in the JAX package)
+- ``rbgs_solve_unpacked``    (kernels/linsolve.py)        one per unpacked
+  keep solve (``packed=False``; no route of the step takes it)
+- ``advect_split_fused``     (kernels/advect_split.py)    one per advected
+  stack through the fused-backtrace entry point (opt-in, no route)
 
 These counters are the package's only global state.
 """
@@ -29,7 +37,9 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "project_masked": 0, "advect_split": 0, "pad_bounds": 0,
             "pad_bounds_masked": 0, "confinement": 0,
             "rbgs_solve_stream": 0, "rbgs_solve_stream_keep": 0,
-            "project_stream": 0, "project_stream_masked": 0}
+            "project_stream": 0, "project_stream_masked": 0,
+            "trilinear_gather": 0, "rbgs_solve3": 0,
+            "rbgs_solve_unpacked": 0, "advect_split_fused": 0}
 
 
 def reset_launches() -> None:

@@ -41,6 +41,12 @@ SIGNATURES = {
     "fst_rbgs_half_keep": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                            _P),
     "fst_keep_red": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "fst_rbgs_half3": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                       _F, _I, _I, _P),
+    "fst_keep_red3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fst_rbgs_half_unpacked": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    "fst_keep_edges": (_P, _P, _I, _I, _I, _I, _P),
+    "fst_trilinear_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "fst_divergence": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "fst_grad_faces": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_divergence_masked": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F,

@@ -12,6 +12,13 @@ x then y then z,
 with each coordinate clamped to ``[0.5, N+0.5]``. ``prev`` is one padded
 field or a stack (Bn, D+2, H+2, W+2) advected through the same velocity.
 Returns the advected interior(s) (Bn?, D, H, W).
+
+``advect_split_fused`` is the port of the JAX package's second entry point
+to the same function, ``advect_pallas.py::advect_split_fused``, whose TPU
+pass kernel ``_lane_pass`` (ROADMAP B18) computes the backtrace
+``clip(i - dt*N*v)`` inside the pass. The card's pass kernel already does
+that for every pass, so the two TPU entry points share one Hopper kernel;
+each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -61,23 +68,34 @@ def advect_split(prev, vx, vy, vz, dt: float):
     """Split advection of padded field(s) ``prev`` through (vx, vy, vz).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (once per pass) or raises."""
+    return _split("advect_split", prev, vx, vy, vz, dt)
+
+
+def advect_split_fused(prev, vx, vy, vz, dt: float):
+    """The fused-backtrace entry point (``advect_split_fused`` of the JAX
+    package, opt-in there and routed by no step here): the same passes
+    through the same kernel as ``advect_split``, counted under its own
+    name. Its plain version is ``advect_split_plain``."""
+    return _split("advect_split_fused", prev, vx, vy, vz, dt)
+
+
+def _split(name, prev, vx, vy, vz, dt):
     if not _build.on_card(prev):
         return advect_split_plain(prev, vx, vy, vz, dt)
     squeeze = prev.ndim == 3
     if squeeze:
         prev = prev[None]
     if prev.ndim != 4 or min(prev.shape[1:]) < 3:
-        raise ValueError(f"advect_split: bad field shape {tuple(prev.shape)}")
+        raise ValueError(f"{name}: bad field shape {tuple(prev.shape)}")
     pad = prev.shape[1:]
-    _build.check_operands("advect_split", (prev, vx, vy, vz),
-                          (None, pad, pad, pad))
+    _build.check_operands(name, (prev, vx, vy, vz), (None, pad, pad, pad))
     Bn, D2, H2, W2 = prev.shape
     D, H, W = D2 - 2, H2 - 2, W2 - 2
     a = torch.empty((Bn, D2, H2, W), dtype=prev.dtype, device=prev.device)
     b = torch.empty((Bn, D2, H, W), dtype=prev.dtype, device=prev.device)
     out = torch.empty((Bn, D, H, W), dtype=prev.dtype, device=prev.device)
     _launch(prev, vx, vy, vz, a, b, out, dt)
-    LAUNCHES["advect_split"] += 1
+    LAUNCHES[name] += 1
     return out[0] if squeeze else out
 
 

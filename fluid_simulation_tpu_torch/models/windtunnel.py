@@ -19,7 +19,11 @@ the caller asks for ``device="cpu"``. On the CPU every stage is plain torch.
 On a CUDA device with ``use_pallas`` the solves, projections, split
 advection, padding and vorticity confinement run the hand-written kernels
 (``kernels/``), in empty and obstacle scenes; big grids stream their solves
-and projections (``kernels/linsolve_stream.py``), and a configuration whose
+and projections (``kernels/linsolve_stream.py``); compat and fast advection
+with ``advect_window > 0`` sample through the trilinear kernel
+(``kernels/advect_compat.py``), and split ignores the window, as in the JAX
+package; the fused three-field diffusion (``kernels/linsolve.rbgs_solve3``)
+is gated off by ``_diffuse3_applicable``, as there. A configuration whose
 kernels are not ported yet raises ``NotImplementedError`` instead of running
 plain torch. With ``use_pallas=False`` the step is plain torch on any
 device.
@@ -38,10 +42,13 @@ import torch
 
 from fluid_simulation_tpu_torch.config import SimParams
 from fluid_simulation_tpu_torch.kernels import _build, linsolve_stream
+from fluid_simulation_tpu_torch.kernels.advect_compat import (
+    trilinear_gather_window)
 from fluid_simulation_tpu_torch.kernels.advect_split import (
     advect_split, advect_split_plain)
 from fluid_simulation_tpu_torch.kernels.bounds import (
     pad_bounds, pad_bounds_plain)
+from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve3
 from fluid_simulation_tpu_torch.kernels.project import (
     project_empty, project_masked)
 from fluid_simulation_tpu_torch.kernels.project_stream import (
@@ -50,7 +57,8 @@ from fluid_simulation_tpu_torch.kernels.vorticity import (
     confinement, confinement_plain)
 from fluid_simulation_tpu_torch.ops.advect import (
     advect, backtrace, trilinear_gather)
-from fluid_simulation_tpu_torch.ops.linsolve import as_scalar, diffuse
+from fluid_simulation_tpu_torch.ops.linsolve import (
+    as_scalar, diffuse, diffusion_coeffs)
 from fluid_simulation_tpu_torch.ops.project import divergence, grid_h, project
 from fluid_simulation_tpu_torch.scene.masks import SceneMasks, build_masks
 
@@ -91,8 +99,6 @@ def unported_reason(p: SimParams) -> Optional[str]:
         return "dtype='bfloat16' (ROADMAP A11)"
     if p.batched:
         return "batched design sweeps (ROADMAP A12)"
-    if p.advect_window > 0:
-        return "advect_window > 0 (ROADMAP B19)"
     return None
 
 
@@ -163,6 +169,30 @@ def _project_dispatch(vx, vy, vz, masks: SceneMasks, p: SimParams):
     return out[0], out[1], out[2]
 
 
+def _diffuse3_applicable(p: SimParams) -> bool:
+    """The fused three-field diffusion (``rbgs_solve3``) is off in the
+    step, as ``_diffuse3_applicable`` is in the JAX package, which measured
+    it neutral on its own hardware. It stays tested, and ``chip_smoke.py``
+    times it on the card with this gate forced on."""
+    return False
+
+
+def _diffuse_vel_dispatch(vx, vy, vz, pvx, pvy, pvz, masks: SceneMasks,
+                          p: SimParams, vel_diff: float, kw: dict):
+    """The step's three velocity diffusions (simulation.cpp:115-117): one
+    ``rbgs_solve3`` call where ``_diffuse3_applicable`` allows it (rbgs,
+    ``use_pallas``, and the resident route: big grids stream their solves),
+    else three ``diffuse`` calls. Both give the same values."""
+    if (_diffuse3_applicable(p) and p.use_pallas and p.solver == "rbgs"
+            and not linsolve_stream.streams(vx.shape)):
+        a, c = diffusion_coeffs(p.width, p.height, p.depth, p.dt, vel_diff)
+        keep = None if p.empty_scene else masks.keep_vel
+        return rbgs_solve3((1, 2, 3), vx, vy, vz, pvx, pvy, pvz, a, c,
+                           acc=p.acc, wall_mode=p.wall_mode, keep=keep)
+    return tuple(diffuse(b, v, pv, masks, p.dt, vel_diff, **kw)
+                 for b, v, pv in ((1, vx, pvx), (2, vy, pvy), (3, vz, pvz)))
+
+
 def _advect_split(prev, vx, vy, vz, p: SimParams):
     fn = advect_split if p.use_pallas else advect_split_plain
     return fn(prev, vx, vy, vz, p.dt)
@@ -181,25 +211,29 @@ def simulation_step(state: FluidState, masks: SceneMasks,
     pvx, pvy, pvz = vx, vy, vz   # pre-diffusion save (simulation.cpp:107-110)
 
     vel_diff = p.visc if p.use_visc_for_velocity else p.diff
-    vx, vy, vz = (diffuse(b, v, pv, masks, p.dt, vel_diff, **kw)
-                  for b, v, pv in ((1, vx, pvx), (2, vy, pvy), (3, vz, pvz)))
+    vx, vy, vz = _diffuse_vel_dispatch(vx, vy, vz, pvx, pvy, pvz, masks, p,
+                                       vel_diff, kw)
     vx, vy, vz = _project_dispatch(vx, vy, vz, masks, p)
 
+    # the trilinear kernel samples compat and fast advection with a window;
+    # the plain path never takes it
+    window = p.advect_window if p.use_pallas else 0
     if p.mode == "compat":
         # sequential component advection (simulation.cpp:125-127)
         vx2 = advect(1, pvx, vx, vy, vz, masks, p.dt, p.wall_mode,
-                     p.empty_scene)
+                     p.empty_scene, window)
         vy2 = advect(2, pvy, vx2, vy, vz, masks, p.dt, p.wall_mode,
-                     p.empty_scene)
+                     p.empty_scene, window)
         vz2 = advect(3, pvz, vx2, vy2, vz, masks, p.dt, p.wall_mode,
-                     p.empty_scene)
+                     p.empty_scene, window)
         vx, vy, vz = vx2, vy2, vz2
     elif p.mode == "fast":
         # one shared backtrace through the projected field, three gathers
         xb, yb, zb = backtrace(
             vx[1:-1, 1:-1, 1:-1], vy[1:-1, 1:-1, 1:-1], vz[1:-1, 1:-1, 1:-1],
             p.dt, p.width, p.height, p.depth, vx.dtype)
-        smp = torch.stack([trilinear_gather(prev, xb, yb, zb)
+        gather = trilinear_gather_window if window > 0 else trilinear_gather
+        smp = torch.stack([gather(prev, xb, yb, zb)
                            for prev in (pvx, pvy, pvz)])
         vx, vy, vz = _pad_bounds_tail(smp, (1, 2, 3), masks, p)
     elif p.mode == "split":
@@ -222,7 +256,7 @@ def simulation_step(state: FluidState, masks: SceneMasks,
                                  masks, p)
     else:
         dens = advect(0, buffer, vx, vy, vz, masks, p.dt, p.wall_mode,
-                      p.empty_scene)
+                      p.empty_scene, window)
 
     nan = torch.tensor(float("nan"), dtype=torch.float32, device=vx.device)
     if p.div_stats:

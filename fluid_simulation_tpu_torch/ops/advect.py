@@ -13,6 +13,9 @@ Mirrors ``Simulation::advect`` (simulation.cpp:367-424):
 - solid cells forced to zero, then ``setBounds(b)``.
 
 The eight corners are read with one direct index gather per corner offset.
+With ``window > 0`` the sample is ``kernels.advect_compat``'s wrapper, which
+launches the trilinear kernel on a CUDA tensor and is this module's
+``trilinear_gather`` on the CPU.
 """
 
 from __future__ import annotations
@@ -87,11 +90,13 @@ def advect(
     dt: float,
     wall_mode: str = "reference",
     empty_scene: bool = False,
+    window: int = 0,
 ) -> torch.Tensor:
     """Advect ``prev`` through the velocity field; returns a new padded
     field. For ``b in (1, 2, 3)`` component ``b`` of the backtrace velocity
     is read from ``prev`` (simulation.cpp:380-382); pass the current
-    vx/vy/vz."""
+    vx/vy/vz. ``window > 0`` (``SimParams.advect_window``) samples through
+    the trilinear kernel's wrapper, which gives the same values."""
     D2, H2, W2 = prev.shape
     W, H, D = W2 - 2, H2 - 2, D2 - 2
 
@@ -100,7 +105,12 @@ def advect(
     vz_i = (prev if b == 3 else vz)[1:-1, 1:-1, 1:-1]
 
     xb, yb, zb = backtrace(vx_i, vy_i, vz_i, dt, W, H, D, prev.dtype)
-    sampled = trilinear_gather(prev, xb, yb, zb)
+    if window > 0:
+        from fluid_simulation_tpu_torch.kernels.advect_compat import (
+            trilinear_gather_window)
+        sampled = trilinear_gather_window(prev, xb, yb, zb)
+    else:
+        sampled = trilinear_gather(prev, xb, yb, zb)
     new_i = sampled if empty_scene else sampled * masks.fluid_i
     out = torch.zeros_like(prev)
     out[1:-1, 1:-1, 1:-1] = new_i

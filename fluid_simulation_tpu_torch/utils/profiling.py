@@ -6,9 +6,10 @@ share, and device time by kernel, from ``torch.profiler``.
 
 profiles the cells on one CUDA device (split and compat at 128x64x64, split
 at 128x64x64 with the bench's sphere and with no-slip walls and vorticity,
-the split step on the plain torch path, and the bench's big grids in split
-mode, 256x128x128, 256^3 and 512x256x256, each empty and with its sphere),
-prints
+the split step on the plain torch path, fast at 128x64x64, compat and fast
+there with ``advect_window=1`` (the trilinear kernel), and the bench's big
+grids in split mode, 256x128x128, 256^3 and 512x256x256, each empty and
+with its sphere), prints
 one summary line and the top device operations per cell, and writes the
 numbers as JSON to ``--out``. ``--cells`` keeps only the cells with those
 labels; ``--wall-only`` times the host wall and the process's CPU time
@@ -170,6 +171,11 @@ def main(argv=None) -> int:
     todo = cells()
     split, _ = todo["split 128x64x64"]
     todo["split 128x64x64 plain"] = (split.replace(use_pallas=False), None)
+    compat, _ = todo["compat 128x64x64"]
+    todo["fast 128x64x64"] = (compat.replace(mode="fast"), None)
+    for mode in ("compat", "fast"):
+        todo[f"{mode} 128x64x64 window"] = (
+            compat.replace(mode=mode, advect_window=1), None)
     todo.update(big_cells())
     if args.cells:
         unknown = set(args.cells) - set(todo)

@@ -7,8 +7,10 @@ is swapped for a stub that checks what the real launcher would be given
 (shape, dtype, contiguity, no aliasing of inputs) and writes the plain
 result. The production steps then run through the real wrappers: the
 empty split and compat steps, obstacle scenes and no-slip walls with
-vorticity, and the launch counters must show which kernels ran, per step.
-Unported configurations must raise on the CUDA branch.
+vorticity, compat and fast advection with a window, the fused three-field
+diffusion with its gate forced on, and the launch counters must show which
+kernels ran, per step. Unported configurations must raise on the CUDA
+branch.
 """
 
 import ctypes
@@ -20,11 +22,13 @@ import torch.nn.functional as F
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
-    LAUNCHES, _build, advect_split as k3, bounds as k4, linsolve as k1,
-    linsolve_stream as k11, project as k2, project_stream as k14,
-    reset_launches, vorticity as k10)
+    LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
+    linsolve as k1, linsolve_stream as k11, project as k2,
+    project_stream as k14, reset_launches, vorticity as k10)
+from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
+from fluid_simulation_tpu_torch.ops.advect import trilinear_gather
 from fluid_simulation_tpu_torch.scene.masks import build_masks
 from fluid_simulation_tpu_torch.scene.primitives import (
     add_sphere, empty_obstacles)
@@ -63,6 +67,37 @@ def stub_k1(out, prev, b, a, c, acc, wall_mode, keep=None):
         keep_pad = F.pad(keep, (1, 1, 1, 1, 1, 1), value=1.0)
     out.copy_(k1.rbgs_solve_plain(b, out, prev, a, c, acc, wall_mode,
                                   keep_pad))
+
+
+def stub_k1_unpacked(out, prev, b, a, c, acc, wall_mode, keep):
+    for t in (out, prev, keep):
+        _operand(t, out.shape)
+    _distinct(out, prev, keep)
+    out.copy_(k1.rbgs_solve_plain(b, out, prev, a, c, acc, wall_mode, keep))
+
+
+def stub_k5(outs, prevs, bs, a, c, acc, wall_mode, keep=None):
+    assert len(outs) == len(prevs) == len(bs) == 3
+    for t in (*outs, *prevs):
+        _operand(t, outs[0].shape)
+    _distinct(*outs, *prevs)
+    keep_pad = None
+    if keep is not None:
+        _mask(keep, [n - 2 for n in outs[0].shape])
+        keep_pad = F.pad(keep, (1, 1, 1, 1, 1, 1), value=1.0)
+    res = k1.rbgs_solve3_plain(bs, *outs, *prevs, a, c, acc, wall_mode,
+                               keep_pad)
+    for dst, src in zip(outs, res):
+        dst.copy_(src)
+
+
+def stub_k9(prev, xb, yb, zb, out):
+    interior = [n - 2 for n in prev.shape]
+    _operand(prev, prev.shape)
+    for t in (xb, yb, zb, out):
+        _operand(t, interior)
+    _distinct(prev, xb, yb, zb, out)
+    out.copy_(trilinear_gather(prev, xb, yb, zb))
 
 
 def stub_k2(vx, vy, vz, rhs, p, acc, wall_mode):
@@ -170,7 +205,11 @@ def stub_grad(vx, vy, vz, fpre, fluid_i, out):
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
     monkeypatch.setattr(_build, "on_card", lambda t: True)
-    for mod, name, stub in ((k1, "_launch", stub_k1), (k2, "_launch", stub_k2),
+    for mod, name, stub in ((k1, "_launch", stub_k1),
+                            (k1, "_launch_unpacked", stub_k1_unpacked),
+                            (k1, "_launch3", stub_k5),
+                            (k9, "_launch", stub_k9),
+                            (k2, "_launch", stub_k2),
                             (k2, "_launch_masked", stub_k6),
                             (k3, "_launch", stub_k3), (k4, "_launch", stub_k4),
                             (k10, "_launch", stub_k10),
@@ -316,8 +355,8 @@ def test_plain_reference_run_launches_nothing(card):
     assert set(LAUNCHES.values()) == {0}
 
 
-@pytest.mark.parametrize("change", [
-    dict(dtype="bfloat16"), dict(advect_window=4), dict(batched=True)])
+@pytest.mark.parametrize("change", [dict(dtype="bfloat16"),
+                                    dict(batched=True)])
 def test_unported_config_raises_on_card(card, change):
     p = SimParams(width=W, height=H, depth=D, acc=3, mode="split",
                   **change)
@@ -328,6 +367,100 @@ def test_unported_config_raises_on_card(card, change):
     masks = build_masks(empty_obstacles(W, H, D), device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         simulation_step(init_state(p, device=CPU), masks, p)
+    assert set(LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("mode,scene,nonzero", [
+    ("compat", None, dict(rbgs_solve=3, project_empty=2, trilinear_gather=4)),
+    ("compat", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
+                            trilinear_gather=4)),
+    ("fast", None, dict(rbgs_solve=3, project_empty=2, trilinear_gather=4,
+                        pad_bounds=1)),
+    ("fast", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
+                          trilinear_gather=4, pad_bounds_masked=1)),
+    ("split", None, dict(rbgs_solve=3, project_empty=2, advect_split=2,
+                         pad_bounds=2)),
+    ("split", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
+                           advect_split=2, pad_bounds_masked=2)),
+])
+def test_window_step_launch_counts(card, mode, scene, nonzero):
+    """advect_window > 0 runs on the card: compat's three velocity advects
+    and fast's three gathers, and the density advect of both, sample
+    through the trilinear kernel (4 per step); split ignores the window and
+    keeps its counts. Each equals the plain step."""
+    p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode,
+                  advect_window=1)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    assert _run_two_steps(p, obs) == _counts(**nonzero)
+
+
+@pytest.mark.parametrize("mode", ["compat", "fast"])
+def test_plain_window_run_launches_nothing(card, mode):
+    """With use_pallas=False a window changes nothing: plain torch."""
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode,
+                  use_pallas=False, advect_window=2)
+    WindTunnel(p, device=CPU).simulate(1)
+    assert set(LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("scene,change", [
+    (None, {}), (SPHERE, {}), (None, dict(wall_mode="noslip"))])
+def test_forced_solve3_step(card, monkeypatch, scene, change):
+    """With the gate forced on, the three velocity diffusions are one
+    rbgs_solve3 call and no rbgs_solve; the step's state equals the gate-off
+    step's, bitwise."""
+    p = SimParams(width=W, height=H, depth=D, acc=4, mode="split", **change)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    states = []
+    for forced in (True, False):
+        monkeypatch.setattr(wtm, "_diffuse3_applicable", lambda p: forced)
+        reset_launches()
+        wt = WindTunnel(p, obstacles=obs, device=CPU)
+        wt.state = FluidState(*_random_state(p))
+        wt.simulate(2)
+        states.append(wt.state)
+        if forced:
+            solves = dict(rbgs_solve3=1, project_masked=2,
+                          pad_bounds_masked=2) if scene else dict(
+                rbgs_solve3=1, project_empty=2, pad_bounds=2)
+            assert {k: n / 2 for k, n in LAUNCHES.items()} == _counts(
+                advect_split=2, **solves)
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+
+
+def test_forced_solve3_keeps_the_streamed_route(card, monkeypatch):
+    """Big grids stream their solves: the fused solve is resident only."""
+    monkeypatch.setattr(wtm, "_diffuse3_applicable", lambda p: True)
+    monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
+    p = SimParams(width=W, height=H, depth=D, acc=5, mode="split")
+    assert _run_two_steps(p, zero_edges=True) == _counts(
+        rbgs_solve_stream=3, project_stream=2, advect_split=2, pad_bounds=4)
+
+
+def test_variant_wrappers_refuse_bad_operands(card):
+    f = torch.zeros(PAD)
+    ones_i = torch.ones(INTERIOR)
+    bf = torch.zeros(PAD, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k9.trilinear_gather_window(bf, ones_i, ones_i, ones_i)
+    with pytest.raises(ValueError, match="shape"):
+        k9.trilinear_gather_window(f, ones_i, ones_i, f)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.trilinear_gather_window(f, ones_i, ones_i,
+                                   torch.ones((W, H, D)).transpose(0, 2))
+    with pytest.raises(NotImplementedError, match="A11"):
+        k1.rbgs_solve3((1, 2, 3), bf, bf, bf, bf, bf, bf, 0.5, 4.0)
+    with pytest.raises(ValueError, match="three"):
+        k1.rbgs_solve3((1, 2), f, f, f, f, f, f, 0.5, 4.0)
+    with pytest.raises(ValueError, match="x stride"):
+        k1.rbgs_solve3((1, 2, 3), f, f, f, f, f, f, 0.5, 4.0,
+                       keep=torch.ones((W + 2, H + 2, D + 2)).transpose(0, 2))
+    with pytest.raises(ValueError, match="shape"):
+        k1.rbgs_solve(1, f, f.clone(), 0.5, 4.0, keep=ones_i, packed=False)
+    with pytest.raises(ValueError, match="shape"):
+        k3.advect_split_fused(torch.zeros((3,) + PAD), f, f,
+                              torch.zeros((4, 4, 4)), 0.05)
     assert set(LAUNCHES.values()) == {0}
 
 
@@ -427,10 +560,25 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
                                   keep=m.keep_vel)
     out11 = k14.project_stream(vx, vy, vz, acc=3)
     out12 = k14.project_stream_masked(vx, vy, vz, m.fluid_i, acc=3)
+    coords = [t[1:-1, 1:-1, 1:-1].contiguous() for t in (vx, vy, vz)]
+    out13 = k9.trilinear_gather_window(g, *coords)
+    out14 = k1.rbgs_solve3((1, 2, 3), vx, vy, vz, g, g.clone(), g.clone(),
+                           0.5, 4.0, acc=2, keep=m.keep_vel)
+    out15 = k1.rbgs_solve(1, vx, g, 0.5, 4.0, acc=2, keep=m.keep_vel,
+                          packed=False)
+    out16 = k3.advect_split_fused(torch.stack([vx, vy]), vx, vy, vz, 0.05)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
-    for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12):
+    for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
+              out13, *out14, out15, out16):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
+    # the variants give what their plain versions give
+    assert torch.equal(out13, trilinear_gather(g, *coords))
+    for got, want in zip(out14, k1.rbgs_solve3_plain(
+            (1, 2, 3), vx, vy, vz, g, g, g, 0.5, 4.0, 2, keep=m.keep_vel)):
+        assert torch.equal(got, want)
+    assert torch.equal(out15, out5)
+    assert torch.equal(out16, out3)
     # the streamed wrappers give what their plain versions give
     assert torch.equal(out9, k11.rbgs_solve_stream_plain(1, vx, g, 0.5, 4.0,
                                                          4))
@@ -470,7 +618,7 @@ def test_sources_and_sign_mask():
     names = {s.name for s in _build.sources()}
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
-            "common.cuh"} <= names
+            "trilinear.cu", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
     assert _build.neg_mask([(-1.0, 1.0, 1.0), (1.0, -1.0, 1.0),
