@@ -67,7 +67,21 @@ final ``ok`` line):
 13. split with the fused three-field diffusion forced on against the
     default (gated off), empty and sphere, 100 steps: bitwise equal
     states, one ``rbgs_solve3`` per step, ms/step of both;
-14. ms/step of the kernel path and the plain path, timed with CUDA events.
+14. the sharded solve's sweep kernels (B15 packed, B20 padded) against
+    their plain versions, bitwise, on the 256^3 slab of two ranks
+    (128x256x256), the 128x64x64 slab of two (32x64x128) and a ragged
+    4x7x13 slab, with the bench spheres' keep masks, random 0/1 solids and
+    no-slip walls; their times and bounds at the 256^3 slab;
+15. ``ShardedWindTunnel(..., devices=["cuda:0"] * n)``, every rank on the
+    one card: 256^3 split over 2 slabs for 4 steps, empty and with the
+    bench sphere (150 packed sweeps per step and no other kernel, residual
+    bounds, solids exactly 0, the obstacle-blind guard, within
+    5e-5·max|field| of the single-card streamed run from rest, ms/step);
+    128x64x64 compat over 2 slabs for 100 steps through the parity gate;
+    128x64x64 split with the bench sphere over 4 slabs for 20 steps
+    against the single-card run; one step of the kernel path against
+    ``use_pallas=False``, bitwise;
+16. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -142,13 +156,20 @@ KERNELS = {
     "advect_split_fused": (
         "fluid_simulation_tpu_torch/csrc/advect_split.cu",
         "fluid_simulation_tpu/kernels/advect_pallas.py:337"),
+    # the sharded solve's per-slab sweeps (B15 routed, B20 never routed)
+    "rbgs_sweep_packed": ("fluid_simulation_tpu_torch/csrc/rbgs_sweep.cu",
+                          "fluid_simulation_tpu/kernels/linsolve_sweep.py:258"),
+    "rbgs_sweep": ("fluid_simulation_tpu_torch/csrc/rbgs_sweep.cu",
+                   "fluid_simulation_tpu/kernels/linsolve_sweep.py:144"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
 OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "pad_bounds_masked": 2, "confinement": 53,
                 # 3 floors, 3 fractions, 7 lerps of 3
-                "trilinear_gather": 27}
+                "trilinear_gather": 27,
+                # one sweep: the update of each cell and its keep multiply
+                "rbgs_sweep_packed": 9, "rbgs_sweep": 9}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -1047,6 +1068,172 @@ class Smoke:
             self.ms_ab(label, (("default", default.step),
                                ("solve3 forced", forced_step)), 50)
 
+    def sweep_kernels(self):
+        """B15 and B20 against their plain versions: the 256^3 slab of two
+        ranks with the bench sphere's keep (rank 1's slab, through the
+        sphere), the 128x64x64 slab of two with the flagship sphere's (rank
+        0's), a ragged 4x7x13 slab with random 0/1 solids and no-slip
+        walls."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import linsolve_sweep as ks
+        from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.utils.profiling import (
+            big_sphere, flagship_sphere)
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 5)
+        small = np.zeros((6, 9, 15), np.float32)
+        small[1:-1, 1:-1, 1:-1] = rng.uniform(size=(4, 7, 13)) < 0.2
+        cases = ((big_sphere(256, 256, 256)[128:258], "reference", (1, 0),
+                  True), (flagship_sphere()[:34], "reference", (1, 0), False),
+                 (small, "noslip", (2, 3), False))
+        for obs, wall, bs, main in cases:
+            m = build_masks(obs, device="cuda")
+            pad = tuple(obs.shape)
+            Dl, H, W = (s - 2 for s in pad)
+            tag = f"slab {Dl}x{H}x{W} {wall}"
+            print(f"   {tag}: {int(m.solid.sum())} solid cells", flush=True)
+            a, c = diffusion_coeffs(W, H, 2 * Dl, 0.05, 2e-5)
+            field, prev = self.rand(rng, pad), self.rand(rng, pad)
+            planes = [self.rand(rng, s) for s in ((Dl, H), (Dl, H), (Dl, W),
+                                                   (Dl, W))]
+            zs = [self.rand(rng, (H, W)) for _ in range(4)]
+            bps = [self.rand(rng, pad[1:]) for _ in range(2)]
+            fk = self.rand(rng, (Dl, H, W))
+            rp = prev[1:-1, 1:-1, 1:-1]
+            for b in bs:
+                keep = m.keep_vel if b else m.keep_scalar
+                kp = keep[1:-1, 1:-1, 1:-1]
+                args = (b, fk, rp, kp, *planes, *zs, a, c, wall)
+                self.compare("rbgs_sweep_packed", ks.rbgs_sweep_packed(*args),
+                             ks.rbgs_sweep_packed_plain(*args),
+                             f"{tag} b={b}")
+                for ak in (True, False):
+                    pargs = (b, field, prev, keep, *bps, a, c, wall, ak)
+                    self.compare("rbgs_sweep", ks.rbgs_sweep(*pargs),
+                                 ks.rbgs_sweep_plain(*pargs),
+                                 f"{tag} b={b} keep={ak}")
+            if main:
+                kp = m.keep_vel[1:-1, 1:-1, 1:-1]
+                args = (1, fk, rp, kp, *planes, *zs, a, c)
+                pargs = (1, field, prev, m.keep_vel, *bps, a, c)
+                shapes = f"slab {Dl}x{H}x{W}"
+                self.time_pair("rbgs_sweep_packed",
+                               lambda: ks.rbgs_sweep_packed(*args),
+                               lambda: ks.rbgs_sweep_packed_plain(*args), 20,
+                               shapes)
+                self.time_pair("rbgs_sweep", lambda: ks.rbgs_sweep(*pargs),
+                               lambda: ks.rbgs_sweep_plain(*pargs), 20,
+                               shapes)
+                n = Dl * H * W
+                self.bound("rbgs_sweep_packed",
+                           (fk, rp, kp, *planes, *zs,
+                            *ks.rbgs_sweep_packed(*args)),
+                           OPS_PER_CELL["rbgs_sweep_packed"] * n)
+                self.bound("rbgs_sweep", (field, rp, m.keep_vel, *bps,
+                                          field),
+                           OPS_PER_CELL["rbgs_sweep"] * n)
+            del m, field, prev, fk
+        self.kern["rbgs_sweep"]["launches"] = 0    # no route
+        torch.cuda.empty_cache()
+
+    def stitched(self, sw):
+        """A sharded run's state stitched to the single-card layout, read
+        as ``check_state``, ``check_scene`` and ``check_parity`` read a
+        WindTunnel."""
+        from types import SimpleNamespace
+        torch = self.torch
+        state = sw.global_state()
+        solid = torch.tensor(sw.obstacles >= 0.5, dtype=torch.float32,
+                             device=state.vx.device)
+        dens = state.dens
+        return SimpleNamespace(
+            state=state, masks=SimpleNamespace(solid=solid),
+            density_sum=lambda: float(torch.sum(dens, dtype=torch.float32)),
+            field_ranges=lambda: {"density": (float(dens.min()),
+                                              float(dens.max()))})
+
+    def against_single(self, sw, wt, label, bound=5e-5):
+        """The stitched sharded state against a single-card run's: max
+        |difference| per field within ``bound``·max|field|."""
+        got = sw.global_state()
+        worst = 0.0
+        for name, a, b in zip(("vx", "vy", "vz", "dens"), got, wt.state):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            worst = max(worst, err / max(scale, 1e-12))
+            print(f"   {label} {name}: max|sharded-single| = {err:.3g}, "
+                  f"max|field| = {scale:.4g}", flush=True)
+            self.check(err <= bound * scale, f"{label} {name}: {err} > "
+                       f"{bound}·{scale}")
+        print(f"   {label}: worst {worst:.3g} of max|field| (bound {bound})",
+              flush=True)
+
+    def sharded(self):
+        """The sharded tunnel through its entry point, every rank on the
+        one card."""
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.parallel import ShardedWindTunnel
+        from fluid_simulation_tpu_torch.utils.profiling import (
+            big_sphere, flagship_sphere)
+
+        torch = self.torch
+        base = SimParams(div_stats=False, step_stats=False)
+        # (a) 256^3 split over two slabs, empty and with the bench sphere
+        p = base.replace(width=256, height=256, depth=256, mode="split")
+        for sphere in (False, True):
+            label = "sharded split 256^3 / 2" + (" sphere" if sphere else "")
+            obs = big_sphere(256, 256, 256) if sphere else None
+            sw = ShardedWindTunnel(p, obstacles=obs,
+                                   devices=["cuda:0"] * 2)
+            print(f"   ranks' devices: {[str(d) for d in sw.devices]}",
+                  flush=True)
+            print(f"   {sw.backend_report()}", flush=True)
+            self.run_path(sw, 4, label, rbgs_sweep_packed=5 * p.acc * 2)
+            view = self.stitched(sw)
+            if sphere:
+                self.check_scene(view, label, twin="sharded split 256^3 / 2")
+            else:
+                self.check_state(view, label)
+                self.twin_sums[label] = view.density_sum()
+            wt = WindTunnel(p, obstacles=obs, device="cuda")
+            wt.simulate(4)
+            self.against_single(sw, wt, f"{label} vs single card (streamed)")
+            del wt, view
+            ms = self.event_ms(sw.step, 2)
+            print(f"   {label}: {ms:.4f} ms/step ({p.n_cells / ms * 1e3:.4g} "
+                  f"cell-updates/s)", flush=True)
+            del sw
+            torch.cuda.empty_cache()
+        # (b) compat 128x64x64 over two slabs through the parity gate
+        sw = ShardedWindTunnel(base, devices=["cuda:0"] * 2)
+        self.run_path(sw, 100, "sharded compat 128x64x64 / 2",
+                      rbgs_sweep_packed=5 * base.acc * 2)
+        self.check_parity(self.stitched(sw))
+        ms = self.event_ms(sw.step, 5)
+        print(f"   sharded compat 128x64x64 / 2: {ms:.4f} ms/step",
+              flush=True)
+        # (c) split with the bench sphere over four slabs
+        p = base.replace(mode="split")
+        sw = ShardedWindTunnel(p, obstacles=flagship_sphere(),
+                               devices=["cuda:0"] * 4)
+        label = "sharded sphere split 128x64x64 / 4"
+        self.run_path(sw, 20, label, rbgs_sweep_packed=5 * p.acc * 4)
+        self.check_scene(self.stitched(sw), label)
+        wt = WindTunnel(p, obstacles=flagship_sphere(), device="cuda")
+        wt.simulate(20)
+        self.against_single(sw, wt, f"{label} vs single card")
+        # (d) one step of the kernel path against the plain sharded step
+        plain = ShardedWindTunnel(p.replace(use_pallas=False),
+                                  obstacles=flagship_sphere(),
+                                  devices=["cuda:0"] * 4)
+        plain.state = [type(st)(*(f.clone() for f in st)) for st in sw.state]
+        sw.step()
+        plain.step()
+        self.same_state(sw.global_state(), plain.global_state(),
+                        f"{label}: 1 step kernel path vs use_pallas=False")
+
     def times(self):
         from fluid_simulation_tpu_torch import WindTunnel
         from fluid_simulation_tpu_torch.utils.profiling import cells
@@ -1098,6 +1285,9 @@ PHASES = [
     ("fast_window", "fast with advect_window=1, 100 steps", "fast_window"),
     ("solve3_ab", "split with the fused three-field diffusion forced on",
      "solve3_ab"),
+    ("sweep_kernels", "kernels vs plain: the sharded solve's sweeps",
+     "sweep_kernels"),
+    ("sharded", "ShardedWindTunnel, every rank on one card", "sharded"),
     ("times", "times", "times"),
 ]
 

@@ -8,7 +8,7 @@ imports JAX. Tensors go to the card unless the caller asks for the CPU.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,35 @@ def state_to_numpy(state: FluidState) -> Tuple[np.ndarray, ...]:
     ``FluidState(*arrays)``. bfloat16 fields come back as float32 (exact)."""
     return tuple((f.float() if f.dtype == torch.bfloat16 else f)
                  .detach().cpu().numpy() for f in state)
+
+
+def sharded_state_from_numpy(fields: Sequence[np.ndarray],
+                             devices) -> List[FluidState]:
+    """The per-rank states of a sharded tunnel from four stacked
+    ``(n, Dl+2, H+2, W+2)`` arrays in field order (the JAX
+    ``ShardedWindTunnel``'s ``state``, through ``np.asarray``): rank r's
+    slab goes to ``devices[r]``. Values are copied exactly."""
+    if len(fields) != 4:
+        raise ValueError(f"expected 4 fields (vx, vy, vz, dens), got "
+                         f"{len(fields)}")
+    fields = [np.asarray(f) for f in fields]
+    shapes = {f.shape for f in fields}
+    if len(shapes) != 1 or len(fields[0].shape) != 4:
+        raise ValueError("fields must be four stacked (n, Dl+2, H+2, W+2) "
+                         "arrays of one shape")
+    if len(devices) != fields[0].shape[0]:
+        raise ValueError(f"{fields[0].shape[0]} slabs for {len(devices)} "
+                         f"devices")
+    return [FluidState(*(torch.tensor(f[r], device=d)
+                         for f in fields)) for r, d in enumerate(devices)]
+
+
+def sharded_state_to_numpy(states: Sequence[FluidState]
+                           ) -> Tuple[np.ndarray, ...]:
+    """The four fields of per-rank states as stacked ``(n, Dl+2, H+2,
+    W+2)`` NumPy arrays, the JAX ``ShardedWindTunnel``'s layout."""
+    per_rank = [state_to_numpy(st) for st in states]
+    return tuple(np.stack([r[k] for r in per_rank]) for k in range(4))
 
 
 def params_from_json(s: str) -> SimParams:

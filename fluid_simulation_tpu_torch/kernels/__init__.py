@@ -29,6 +29,10 @@ show which kernels carried it:
   keep solve (``packed=False``; no route of the step takes it)
 - ``advect_split_fused``     (kernels/advect_split.py)    one per advected
   stack through the fused-backtrace entry point (opt-in, no route)
+- ``rbgs_sweep_packed``      (kernels/linsolve_sweep.py)  one per packed
+  sweep of one rank's slab in the sharded solve (``5·acc·n`` per step)
+- ``rbgs_sweep``             (kernels/linsolve_sweep.py)  one per padded
+  slab sweep (no route, as in the JAX package)
 
 These counters are the package's only global state.
 """
@@ -39,7 +43,8 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "rbgs_solve_stream": 0, "rbgs_solve_stream_keep": 0,
             "project_stream": 0, "project_stream_masked": 0,
             "trilinear_gather": 0, "rbgs_solve3": 0,
-            "rbgs_solve_unpacked": 0, "advect_split_fused": 0}
+            "rbgs_solve_unpacked": 0, "advect_split_fused": 0,
+            "rbgs_sweep_packed": 0, "rbgs_sweep": 0}
 
 
 def reset_launches() -> None:

@@ -67,6 +67,13 @@ SIGNATURES = {
     "fst_div_packed": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _P),
     "fst_grad_packed": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _F,
                         _P),
+    "fst_sweep_packed_red": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _F, _F, _P),
+    "fst_sweep_packed_black": (_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _F, _F, _I, _P),
+    "fst_sweep_half": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    "fst_sweep_finish": (_P, _P, _I, _I, _I, _P),
 }
 
 

@@ -39,11 +39,14 @@ def _lerp8(c000, c100, c010, c110, c001, c101, c011, c111, sx, sy, sz):
     return c0 * (1.0 - sz) + c1 * sz
 
 
-def trilinear_gather(prev: torch.Tensor, xb, yb, zb) -> torch.Tensor:
+def trilinear_gather(prev: torch.Tensor, xb, yb, zb,
+                     z_off: int = 0) -> torch.Tensor:
     """Trilinear sample of the padded field ``prev`` at backtraced
     coordinates (interior-shaped). Integer ``i`` is the centre of interior
     cell ``i``; with coordinates clamped as the reference does, every corner
-    lies inside the padded array."""
+    lies inside the padded array. ``z_off`` names the global z row that
+    ``prev``'s row 0 holds (a sharded z window); the lerp fractions come
+    from the global ``zb`` either way."""
     D2, H2, W2 = prev.shape
     i0 = torch.floor(xb).to(torch.int64)
     j0 = torch.floor(yb).to(torch.int64)
@@ -51,6 +54,7 @@ def trilinear_gather(prev: torch.Tensor, xb, yb, zb) -> torch.Tensor:
     sx = xb - i0.to(xb.dtype)
     sy = yb - j0.to(yb.dtype)
     sz = zb - k0.to(zb.dtype)
+    k0 = k0 - z_off
 
     flat = prev.reshape(-1)
     sy_, sz_ = W2, W2 * H2

@@ -2,7 +2,7 @@
 share, and device time by kernel, from ``torch.profiler``.
 
     python -m fluid_simulation_tpu_torch.utils.profiling [--steps N] [--out FILE]
-        [--cells LABEL ...] [--wall-only]
+        [--cells LABEL ...] [--wall-only] [--shards N]
 
 profiles the cells on one CUDA device (split and compat at 128x64x64, split
 at 128x64x64 with the bench's sphere and with no-slip walls and vorticity,
@@ -14,8 +14,11 @@ one summary line and the top device operations per cell, and writes the
 numbers as JSON to ``--out``. ``--cells`` keeps only the cells with those
 labels; ``--wall-only`` times the host wall and the process's CPU time
 per step and skips the profiler, for repeated runs that compare two trees:
-the CPU time leaves out the time the host spends on other processes. A CPU tensor has no
-device metric, so the measurement refuses to run without a card.
+the CPU time leaves out the time the host spends on other processes.
+``--shards N`` runs the cells (by default split 256^3 and compat 128x64x64)
+as ``ShardedWindTunnel``s over N z-slabs with every rank on the one card,
+labelled ``<cell> / N slabs``. A CPU tensor has no device metric, so the
+measurement refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -148,6 +151,27 @@ def cells() -> Dict[str, Tuple[SimParams, Optional[np.ndarray]]]:
     }
 
 
+def make_tunnel(p: SimParams, obs, shards: int = 0, device="cuda"):
+    """A ``WindTunnel`` on ``device``, or with ``shards`` a
+    ``ShardedWindTunnel`` over that many z-slabs, every rank on
+    ``device``."""
+    if shards:
+        from fluid_simulation_tpu_torch.parallel import ShardedWindTunnel
+        return ShardedWindTunnel(p, obstacles=obs, devices=[device] * shards)
+    from fluid_simulation_tpu_torch import WindTunnel
+    return WindTunnel(p, obstacles=obs, device=device)
+
+
+def shard_cells(todo, shards: int):
+    """``todo``'s cells relabelled ``<cell> / N slabs`` for a sharded run;
+    a cell whose depth ``shards`` does not divide is refused."""
+    bad = [k for k, (p, _) in todo.items() if p.depth % shards]
+    if bad:
+        raise SystemExit(f"profiling: depth of {bad} not divisible by "
+                         f"{shards} slabs")
+    return {f"{k} / {shards} slabs": v for k, v in todo.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -157,10 +181,12 @@ def main(argv=None) -> int:
     ap.add_argument("--wall-only", action="store_true",
                     help="host wall and CPU time per step only, without "
                          "the profiler")
+    ap.add_argument("--shards", type=int, default=0, metavar="N",
+                    help="run the cells sharded over N z-slabs, every rank "
+                         "on the one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
-    from fluid_simulation_tpu_torch import WindTunnel
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -177,14 +203,19 @@ def main(argv=None) -> int:
         todo[f"{mode} 128x64x64 window"] = (
             compat.replace(mode=mode, advect_window=1), None)
     todo.update(big_cells())
-    if args.cells:
-        unknown = set(args.cells) - set(todo)
+    cells_asked = args.cells
+    if args.shards and not cells_asked:
+        cells_asked = ["split 256x256x256", "compat 128x64x64"]
+    if cells_asked:
+        unknown = set(cells_asked) - set(todo)
         if unknown:
             raise SystemExit(f"profiling: no cell {sorted(unknown)}; the "
                              f"cells are {list(todo)}")
-        todo = {k: todo[k] for k in args.cells}
+        todo = {k: todo[k] for k in cells_asked}
+    if args.shards:
+        todo = shard_cells(todo, args.shards)
     for label, (p, obs) in todo.items():
-        wt = WindTunnel(p, obstacles=obs, device="cuda")
+        wt = make_tunnel(p, obs, args.shards)
         if args.wall_only:
             wall, cpu = host_ms(wt, args.steps)
             out["cells"][label] = {"wall_ms": wall, "cpu_ms": cpu}

@@ -23,8 +23,8 @@ import torch.nn.functional as F
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
-    linsolve as k1, linsolve_stream as k11, project as k2,
-    project_stream as k14, reset_launches, vorticity as k10)
+    linsolve as k1, linsolve_stream as k11, linsolve_sweep as k15,
+    project as k2, project_stream as k14, reset_launches, vorticity as k10)
 from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
@@ -201,6 +201,25 @@ def stub_grad(vx, vy, vz, fpre, fluid_i, out):
     out.copy_(k14.gradient_packed_plain(vx, vy, vz, fpre, fluid_i))
 
 
+def stub_sweep_packed(ins, rp, kp, outs, f1, b, a, c, wall_mode):
+    for t in ins + outs + (f1,):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+    for m in (rp, kp):
+        _mask(m, ins[0].shape)
+    _distinct(*ins, *outs, f1)
+    for dst, src in zip(outs, k15.rbgs_sweep_packed_plain(
+            b, ins[0], rp, kp, *ins[1:], a, c, wall_mode)):
+        dst.copy_(src)
+
+
+def stub_sweep_padded(out, prev, keep, bp_lo, bp_hi, b, a, c, wall_mode):
+    for t in (out, prev) + (() if keep is None else (keep,)):
+        _operand(t, out.shape)
+    _distinct(out, prev, bp_lo, bp_hi)
+    out.copy_(k15.rbgs_sweep_plain(b, out, prev, keep, bp_lo, bp_hi, a, c,
+                                   wall_mode, apply_keep=keep is not None))
+
+
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
@@ -216,7 +235,9 @@ def card(monkeypatch):
                             (k11, "_launch_sweep1", stub_sweep1),
                             (k11, "_launch_pass", stub_pass),
                             (k14, "_launch_div", stub_div),
-                            (k14, "_launch_grad", stub_grad)):
+                            (k14, "_launch_grad", stub_grad),
+                            (k15, "_launch_packed", stub_sweep_packed),
+                            (k15, "_launch_padded", stub_sweep_padded)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -567,10 +588,18 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out15 = k1.rbgs_solve(1, vx, g, 0.5, 4.0, acc=2, keep=m.keep_vel,
                           packed=False)
     out16 = k3.advect_split_fused(torch.stack([vx, vy]), vx, vy, vz, 0.05)
+    plane = g[0, 1:-1, 1:-1].contiguous()
+    out17 = k15.rbgs_sweep_packed(
+        1, vx[1:-1, 1:-1, 1:-1].contiguous(), g[1:-1, 1:-1, 1:-1], kv,
+        *(t.contiguous() for t in (vx[1:-1, 1:-1, 0], vx[1:-1, 1:-1, -1],
+                                   vx[1:-1, 0, 1:-1], vx[1:-1, -1, 1:-1])),
+        plane, plane.clone(), plane.clone(), plane.clone(), 0.5, 4.0)
+    out18 = k15.rbgs_sweep(2, vx, g, m.keep_vel, vy[0].clone(),
+                           vy[-1].clone(), 0.5, 4.0)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
-              out13, *out14, out15, out16):
+              out13, *out14, out15, out16, *out17, out18):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -586,6 +615,10 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
         vx, vy, vz, m.fluid_i, acc=3))
     assert len(out4) == 2 and out4[0].shape == PAD
     assert len(out7) == 2 and out7[1].shape == PAD
+    # the sharded sweeps give what their plain versions give
+    assert torch.equal(out18, k15.rbgs_sweep_plain(
+        2, vx, g, m.keep_vel, vy[0], vy[-1], 0.5, 4.0))
+    assert len(out17) == 7 and out17[0].shape == INTERIOR
     assert LAUNCHES == {k: 1 for k in LAUNCHES}
 
 
@@ -618,7 +651,7 @@ def test_sources_and_sign_mask():
     names = {s.name for s in _build.sources()}
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
-            "trilinear.cu", "common.cuh"} <= names
+            "trilinear.cu", "rbgs_sweep.cu", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
     assert _build.neg_mask([(-1.0, 1.0, 1.0), (1.0, -1.0, 1.0),

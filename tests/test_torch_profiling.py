@@ -5,8 +5,10 @@ import pytest
 import torch
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
+from fluid_simulation_tpu_torch.parallel import ShardedWindTunnel
 from fluid_simulation_tpu_torch.utils.profiling import (
-    BIG_SPHERES, big_sphere, busy_us, cells, host_ms, step_breakdown)
+    BIG_SPHERES, big_sphere, busy_us, cells, host_ms, main, make_tunnel,
+    shard_cells, step_breakdown)
 
 torch.set_num_threads(1)
 
@@ -68,3 +70,29 @@ def test_big_grids_are_the_bench_configs():
     assert obs.shape == (130, 130, 258)
     assert obs[64, 64, 85] == 1.0 and obs[64, 64, 106] == 0.0
     assert obs[0].sum() == obs[:, 0].sum() == obs[..., 0].sum() == 0.0
+
+
+def test_shards_flag_builds_sharded_tunnels():
+    """``--shards N``: the cells run as ShardedWindTunnels over N slabs,
+    every rank on one device, and a step breakdown of one refuses the CPU
+    as the single-device one does."""
+    p = SimParams(width=8, height=4, depth=4, acc=2, mode="split")
+    wt = make_tunnel(p, None, 2, device=CPU)
+    assert isinstance(wt, ShardedWindTunnel)
+    assert [str(d) for d in wt.devices] == [CPU, CPU]
+    assert isinstance(make_tunnel(p, None, 0, device=CPU), WindTunnel)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        host_ms(wt, steps=1, warmup=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        step_breakdown(wt, steps=1, warmup=0)
+    todo = {k: v for k, v in cells().items() if k == "compat 128x64x64"}
+    assert list(shard_cells(todo, 2)) == ["compat 128x64x64 / 2 slabs"]
+    with pytest.raises(SystemExit, match="divisible"):
+        shard_cells(todo, 3)
+
+
+def test_main_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["--shards", "2", "--wall-only"])
