@@ -81,7 +81,17 @@ final ``ok`` line):
     128x64x64 split with the bench sphere over 4 slabs for 20 steps
     against the single-card run; one step of the kernel path against
     ``use_pallas=False``, bitwise;
-16. ms/step of the kernel path and the plain path, timed with CUDA events.
+16. the retired kernels of ``tools/`` (``retired_kernels``): one call each
+    of the fused prestep (B22a), empty and with the bench sphere, and of
+    the blocked solve (B22c), with the counts set to 0 just before and read
+    just after (1, 1 and ``acc``, no other counter); the prestep against
+    its plain version and against the chain it replaces (K1 x3 + K2, K1
+    keep x3 + K6), bitwise, reference and no-slip walls, one device
+    operation per call, its event and device ms per call beside the
+    chain's and its bound; the blocked solve against its plain version,
+    bitwise, at 128x64x64 and 256^3 with the spheres' keep masks, its
+    times and bound;
+17. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -161,6 +171,13 @@ KERNELS = {
                           "fluid_simulation_tpu/kernels/linsolve_sweep.py:258"),
     "rbgs_sweep": ("fluid_simulation_tpu_torch/csrc/rbgs_sweep.cu",
                    "fluid_simulation_tpu/kernels/linsolve_sweep.py:144"),
+    # the retired kernels of tools/ (B22a, B22c): library functions, no route
+    "prestep": ("fluid_simulation_tpu_torch/csrc/prestep.cu",
+                "tools/prestep_pallas.py:176"),
+    "prestep_masked": ("fluid_simulation_tpu_torch/csrc/prestep.cu",
+                       "tools/prestep_pallas.py:176"),
+    "rbgs_solve_blocked": ("fluid_simulation_tpu_torch/csrc/rbgs_sweep.cu",
+                           "tools/linsolve_blocked.py:180"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -169,7 +186,10 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 # 3 floors, 3 fractions, 7 lerps of 3
                 "trilinear_gather": 27,
                 # one sweep: the update of each cell and its keep multiply
-                "rbgs_sweep_packed": 9, "rbgs_sweep": 9}
+                "rbgs_sweep_packed": 9, "rbgs_sweep": 9,
+                # per sweep of its four solves (three diffusions and the
+                # Poisson solve); the projection adds 16 (masked 64) once
+                "prestep": 8, "prestep_masked": 9, "rbgs_solve_blocked": 9}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -1138,6 +1158,129 @@ class Smoke:
         self.kern["rbgs_sweep"]["launches"] = 0    # no route
         torch.cuda.empty_cache()
 
+    def retired_kernels(self):
+        """B22a (the fused pre-advection block) and B22c (the blocked solve)
+        through their entry points, with the counts set to 0 just before
+        and read just after; then against their plain versions, the prestep
+        also against the chain it replaces (K1 x3 + K2, K1 keep x3 + K6),
+        at 128x64x64 with the bench sphere's masks, reference and no-slip
+        walls; the blocked solve also at 256^3 with its sphere. Times,
+        device times and bounds."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import (
+            LAUNCHES, reset_launches)
+        from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
+        from fluid_simulation_tpu_torch.kernels.linsolve_blocked import (
+            rbgs_solve_blocked, rbgs_solve_blocked_plain)
+        from fluid_simulation_tpu_torch.kernels.prestep import (
+            grid_blocks, prestep, prestep_plain)
+        from fluid_simulation_tpu_torch.kernels.project import (
+            project_empty, project_masked)
+        from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.utils.profiling import (
+            big_sphere, device_profile, flagship_sphere)
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 6)
+        W, H, D = 128, 64, 64
+        pad, n, acc = (D + 2, H + 2, W + 2), W * H * D, 15
+        a, c = diffusion_coeffs(W, H, D, 0.05, 2e-5)
+        m = build_masks(flagship_sphere(), device="cuda")
+        scenes = {"prestep": (None, None, None),
+                  "prestep_masked": (m.fluid_i, m.keep_vel[1:-1, 1:-1, 1:-1],
+                                     m.keep_vel)}
+        vel = [self.rand(rng, pad) for _ in range(3)]
+        f, g = self.rand(rng, pad), self.rand(rng, pad)
+        print(f"   prestep cooperative grid: {grid_blocks(vel[0].device)} "
+              f"blocks of 256 threads", flush=True)
+
+        reset_launches()
+        for fl, kv, _ in scenes.values():
+            prestep(*vel, fl, kv, a, c, acc)
+        rbgs_solve_blocked(1, f, g, m.keep_vel, a, c, acc)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        want = {k: {"prestep": 1, "prestep_masked": 1,
+                    "rbgs_solve_blocked": acc}.get(k, 0) for k in counts}
+        print(f"   launches of one call each: "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        self.check(counts == want, f"retired kernels: counts {counts} != "
+                   f"{want}")
+        for name in ("prestep", "prestep_masked", "rbgs_solve_blocked"):
+            self.kern[name]["launches"] = counts[name]
+
+        def chain(fl, kv, keep, wall):
+            w = [rbgs_solve(b, v, v, a, c, acc, wall, keep)
+                 for b, v in zip((1, 2, 3), vel)]
+            return (project_empty(*w, acc, wall) if fl is None else
+                    project_masked(*w, fl, kv, acc, wall))
+
+        for name, (fl, kv, keep) in scenes.items():
+            for wall in ("reference", "noslip"):
+                got = prestep(*vel, fl, kv, a, c, acc, wall)
+                tag = f"128x64x64 {wall}"
+                self.compare(name, got, prestep_plain(*vel, fl, kv, a, c,
+                                                      acc, wall), tag)
+                self.compare(name, got, chain(fl, kv, keep, wall), tag,
+                             ref="chain")
+            kf = lambda: prestep(*vel, fl, kv, a, c, acc)  # noqa: E731
+            pf = lambda: prestep_plain(*vel, fl, kv, a, c,  # noqa: E731
+                                       acc)
+            cf = lambda: chain(fl, kv, keep, "reference")  # noqa: E731
+            self.time_pair(name, kf, pf, 20)
+            chain_ms = self.event_ms(cf, 20)
+            kd, cd = device_profile(kf, 10), device_profile(cf, 10)
+            print(f"   {name:14s} chain {chain_ms:.4f} ms per call; device "
+                  f"ms per call: kernel {kd['busy_ms']:.4f} in "
+                  f"{kd['device_ops']:g} launch(es), chain "
+                  f"{cd['busy_ms']:.4f} in {cd['device_ops']:g}", flush=True)
+            self.check(kd["device_ops"] == 1.0,
+                       f"{name}: {kd['device_ops']} device ops per call, "
+                       f"expected one cooperative launch: {kd['top']}")
+            masks = () if fl is None else (fl, kv)
+            # divergence 7 and gradient 9 (masked 13 and 51) once
+            extra = 16 if fl is None else 64
+            self.bound(name, (*vel, *masks, *got),
+                       (4 * acc * OPS_PER_CELL[name] + extra) * n)
+
+        for obs, (Wb, Hb, Db), main in ((flagship_sphere(), (W, H, D), True),
+                                        (big_sphere(256, 256, 256),
+                                         (256, 256, 256), False)):
+            mb = build_masks(obs, device="cuda")
+            padb = (Db + 2, Hb + 2, Wb + 2)
+            ab, cb = diffusion_coeffs(Wb, Hb, Db, 0.05, 2e-5)
+            fb, gb = self.rand(rng, padb), self.rand(rng, padb)
+            tag = f"{Wb}x{Hb}x{Db}"
+            for b, keep, wall, empty in ((0, mb.keep_scalar, "reference",
+                                          False),
+                                         (1, mb.keep_vel, "reference", False),
+                                         (2, mb.keep_vel, "noslip", False),
+                                         (3, None, "noslip", True)):
+                args = (b, fb, gb, keep, ab, cb, acc, wall, empty)
+                self.compare("rbgs_solve_blocked", rbgs_solve_blocked(*args),
+                             rbgs_solve_blocked_plain(*args),
+                             f"{tag} b={b} {wall}"
+                             f"{' empty' if empty else ''}")
+            args = (1, fb, gb, mb.keep_vel, ab, cb, acc)
+            kf = lambda: rbgs_solve_blocked(*args)  # noqa: E731
+            pf = lambda: rbgs_solve_blocked_plain(*args)  # noqa: E731
+            if main:
+                self.time_pair("rbgs_solve_blocked", kf, pf, 20)
+                self.bound("rbgs_solve_blocked",
+                           (fb, gb[1:-1, 1:-1, 1:-1], mb.keep_vel, fb),
+                           acc * OPS_PER_CELL["rbgs_solve_blocked"] * n)
+            else:
+                print(f"   rbgs_solve_blocked {tag}: kernel "
+                      f"{self.event_ms(kf, 5):.4f} ms, plain "
+                      f"{self.event_ms(pf, 2):.4f} ms per call", flush=True)
+                self.bound("rbgs_solve_blocked",
+                           (fb, gb[1:-1, 1:-1, 1:-1], mb.keep_vel, fb),
+                           acc * OPS_PER_CELL["rbgs_solve_blocked"]
+                           * Wb * Hb * Db, record=False)
+            del mb, fb, gb
+        torch.cuda.empty_cache()
+
     def stitched(self, sw):
         """A sharded run's state stitched to the single-card layout, read
         as ``check_state``, ``check_scene`` and ``check_parity`` read a
@@ -1287,6 +1430,8 @@ PHASES = [
      "solve3_ab"),
     ("sweep_kernels", "kernels vs plain: the sharded solve's sweeps",
      "sweep_kernels"),
+    ("retired_kernels", "kernels vs plain: the fused prestep and the "
+     "blocked solve", "retired_kernels"),
     ("sharded", "ShardedWindTunnel, every rank on one card", "sharded"),
     ("times", "times", "times"),
 ]

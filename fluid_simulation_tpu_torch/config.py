@@ -69,11 +69,15 @@ class SimParams:
     # Collect the per-step density sum in StepStats (NaN when off).
     step_stats: bool = True
 
-    # compat/fast advection: bounded-window corner fetch (a TPU kernel in the
-    # JAX package; bit-identical to the plain gather, which the port runs).
+    # compat/fast advection: > 0 samples through the trilinear gather kernel
+    # (kernels/advect_compat.py) on the card, bit-identical to the plain
+    # gather, which the CPU and use_pallas=False run; split ignores it.
     advect_window: int = 0
 
-    # Sharded runs only (not ported yet).
+    # Sharded runs only: each advect reads its z rows from this many
+    # neighbour slabs per side, or from the full gather where a backtrace
+    # reaches further (parallel/sharded.py::_z_lerp_dispatch); 0 always
+    # gathers. The same values either way.
     advect_halo_slabs: int = 1
 
     # Set by WindTunnel when the obstacle field is empty: obstacle-mask

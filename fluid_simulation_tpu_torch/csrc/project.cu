@@ -48,76 +48,44 @@
 
 namespace {
 
+// One thread per interior cell; the bodies are common.cuh's, shared with
+// the cooperative prestep (prestep.cu).
+__device__ __forceinline__ bool interior_cell(int W, int H, int& z, int& y,
+                                              int& x) {
+  x = blockIdx.x * blockDim.x + threadIdx.x + 1;
+  y = blockIdx.y * blockDim.y + threadIdx.y + 1;
+  z = blockIdx.z + 1;
+  return x <= W && y <= H;
+}
+
 __global__ void divergence_kernel(const float* __restrict__ vx,
                                   const float* __restrict__ vy,
                                   const float* __restrict__ vz,
                                   float* __restrict__ rhs, int D, int H,
                                   int W, float neg_half_h) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
-  const int z = blockIdx.z + 1;
-  if (x > W || y > H) return;
-  const long sy = W + 2;
-  const long sz = static_cast<long>(H + 2) * (W + 2);
-  const long i = z * sz + y * sy + x;
-  float d = __fsub_rn(x < W ? vx[i + 1] : 0.0f, x > 1 ? vx[i - 1] : 0.0f);
-  d = __fadd_rn(d, y < H ? vy[i + sy] : 0.0f);
-  d = __fsub_rn(d, y > 1 ? vy[i - sy] : 0.0f);
-  d = __fadd_rn(d, z < D ? vz[i + sz] : 0.0f);
-  d = __fsub_rn(d, z > 1 ? vz[i - sz] : 0.0f);
-  rhs[i] = __fmul_rn(neg_half_h, d);
+  int z, y, x;
+  if (!interior_cell(W, H, z, y, x)) return;
+  fst::divergence_cell(vx, vy, vz, rhs, D, H, W, neg_half_h, z, y, x);
 }
-
-using fst::gradient;
-using fst::gradient_masked;
-using fst::nb;
 
 __global__ void grad_faces_kernel(float* vx, float* vy, float* vz,
                                   const float* __restrict__ p, int D, int H,
                                   int W, float inv_h, float inv_2h,
                                   int neg_mask) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
-  const int z = blockIdx.z + 1;
-  if (x > W || y > H) return;
-  const long sy = W + 2;
-  const long sz = static_cast<long>(H + 2) * (W + 2);
-  const long i = z * sz + y * sy + x;
-  const float pi = p[i];
-  // out-of-interior neighbours are ghost cells of p: in memory, never used
-  const float gx = gradient(x < W, x > 1, p[i + 1], p[i - 1], pi, inv_2h, inv_h);
-  const float gy = gradient(y < H, y > 1, p[i + sy], p[i - sy], pi, inv_2h, inv_h);
-  const float gz = gradient(z < D, z > 1, p[i + sz], p[i - sz], pi, inv_2h, inv_h);
-  const float ux = __fsub_rn(vx[i], gx);
-  const float uy = __fsub_rn(vy[i], gy);
-  const float uz = __fsub_rn(vz[i], gz);
-  vx[i] = ux;
-  vy[i] = uy;
-  vz[i] = uz;
-  fst::write_faces(vx, i, sy, sz, z, y, x, D, H, W, ux, neg_mask, 0);
-  fst::write_faces(vy, i, sy, sz, z, y, x, D, H, W, uy, neg_mask, 1);
-  fst::write_faces(vz, i, sy, sz, z, y, x, D, H, W, uz, neg_mask, 2);
+  int z, y, x;
+  if (!interior_cell(W, H, z, y, x)) return;
+  fst::grad_faces_cell(vx, vy, vz, p, D, H, W, inv_h, inv_2h, neg_mask, z, y,
+                       x);
 }
 
 __global__ void divergence_masked_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, const float* __restrict__ fl, int fsz,
     int fsy, float* __restrict__ rhs, int D, int H, int W, float neg_half_h) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
-  const int z = blockIdx.z + 1;
-  if (x > W || y > H) return;
-  const long sy = W + 2;
-  const long sz = static_cast<long>(H + 2) * (W + 2);
-  const long i = z * sz + y * sy + x;
-  const long m = fst::mask_index(z, y, x, fsz, fsy);
-  float d = __fsub_rn(__fmul_rn(vx[i + 1], nb(x < W, fl, m + 1)),
-                      __fmul_rn(vx[i - 1], nb(x > 1, fl, m - 1)));
-  d = __fadd_rn(d, __fmul_rn(vy[i + sy], nb(y < H, fl, m + fsy)));
-  d = __fsub_rn(d, __fmul_rn(vy[i - sy], nb(y > 1, fl, m - fsy)));
-  d = __fadd_rn(d, __fmul_rn(vz[i + sz], nb(z < D, fl, m + fsz)));
-  d = __fsub_rn(d, __fmul_rn(vz[i - sz], nb(z > 1, fl, m - fsz)));
-  rhs[i] = __fmul_rn(__fmul_rn(neg_half_h, d), fl[m]);
+  int z, y, x;
+  if (!interior_cell(W, H, z, y, x)) return;
+  fst::divergence_masked_cell(vx, vy, vz, fl, fsz, fsy, rhs, D, H, W,
+                              neg_half_h, z, y, x);
 }
 
 __global__ void grad_faces_masked_kernel(
@@ -125,35 +93,10 @@ __global__ void grad_faces_masked_kernel(
     const float* __restrict__ fl, int fsz, int fsy,
     const float* __restrict__ kv, int ksz, int ksy, int D, int H, int W,
     float inv_h, float inv_2h, int neg_mask) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y + 1;
-  const int z = blockIdx.z + 1;
-  if (x > W || y > H) return;
-  const long sy = W + 2;
-  const long sz = static_cast<long>(H + 2) * (W + 2);
-  const long i = z * sz + y * sy + x;
-  const long m = fst::mask_index(z, y, x, fsz, fsy);
-  const float pi = p[i];
-  const float gx = gradient_masked(nb(x < W, fl, m + 1), nb(x > 1, fl, m - 1),
-                                   p[i + 1], p[i - 1], pi, inv_2h, inv_h);
-  const float gy = gradient_masked(nb(y < H, fl, m + fsy),
-                                   nb(y > 1, fl, m - fsy), p[i + sy],
-                                   p[i - sy], pi, inv_2h, inv_h);
-  const float gz = gradient_masked(nb(z < D, fl, m + fsz),
-                                   nb(z > 1, fl, m - fsz), p[i + sz],
-                                   p[i - sz], pi, inv_2h, inv_h);
-  const float f = fl[m];
-  const float k = kv[fst::mask_index(z, y, x, ksz, ksy)];
-  const float ux = __fsub_rn(vx[i], __fmul_rn(gx, f));
-  const float uy = __fsub_rn(vy[i], __fmul_rn(gy, f));
-  const float uz = __fsub_rn(vz[i], __fmul_rn(gz, f));
-  vx[i] = __fmul_rn(ux, k);
-  vy[i] = __fmul_rn(uy, k);
-  vz[i] = __fmul_rn(uz, k);
-  // faces mirror the pre-keep edge
-  fst::write_faces(vx, i, sy, sz, z, y, x, D, H, W, ux, neg_mask, 0);
-  fst::write_faces(vy, i, sy, sz, z, y, x, D, H, W, uy, neg_mask, 1);
-  fst::write_faces(vz, i, sy, sz, z, y, x, D, H, W, uz, neg_mask, 2);
+  int z, y, x;
+  if (!interior_cell(W, H, z, y, x)) return;
+  fst::grad_faces_masked_cell(vx, vy, vz, p, fl, fsz, fsy, kv, ksz, ksy, D, H,
+                              W, inv_h, inv_2h, neg_mask, z, y, x);
 }
 
 }  // namespace

@@ -28,7 +28,8 @@
 // Numerics: the neighbour sum is left-associated ((((x+ + x-) + y+) + y-)
 // + z+) + z-, and every product and sum is rounded on its own
 // (__fmul_rn/__fadd_rn, and the library is built with -fmad=false), so the
-// result equals the plain torch sweep bit for bit.
+// result equals the plain torch sweep bit for bit. The per-cell body lives
+// in common.cuh (rbgs_cell), shared with the cooperative prestep.
 //
 // Obstacle scenes (the keep form). Replaces the apply_keep=True branch of
 // _packed_body (linsolve_pallas.py:185-274), ROADMAP B5, and is the Poisson
@@ -87,7 +88,7 @@ __device__ __forceinline__ bool colour_cell(int color, int z, int H, int W,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   y = blockIdx.y * blockDim.y + threadIdx.y + 1;
   if (y > H) return false;
-  x = 1 + 2 * t + ((z + y + 1 + color) & 1);
+  x = fst::colour_x(color, z, y, t);
   return x <= W;
 }
 
@@ -147,25 +148,17 @@ __global__ void rbgs_half_kernel(Fields fs, const float* __restrict__ keep,
   const float* prev = NF == 1 || field == 0
                           ? fs.prev[0]
                           : (field == 1 ? fs.prev[1] : fs.prev[2]);
+  if (!UNPACKED) {
+    fst::rbgs_cell(f, prev, keep, ksz, ksy, D, H, W, a, crec, color,
+                   neg_mask, field, z, y, x);
+    return;
+  }
   const long sy = W + 2;
   const long sz = static_cast<long>(H + 2) * (W + 2);
   const long i = z * sz + y * sy + x;
-
-  float s = __fadd_rn(f[i + 1], f[i - 1]);
-  s = __fadd_rn(s, f[i + sy]);
-  s = __fadd_rn(s, f[i - sy]);
-  s = __fadd_rn(s, f[i + sz]);
-  s = __fadd_rn(s, f[i - sz]);
-  const float u = __fmul_rn(__fadd_rn(prev[i], __fmul_rn(a, s)), crec);
-  if (UNPACKED) {
-    f[i] = color == 1 ? __fmul_rn(u, keep[i]) : u;
-    write_faces_keep(f, keep, i, sy, sz, z, y, x, D, H, W, u, neg_mask);
-  } else {
-    f[i] = (keep != nullptr && color == 1)
-               ? __fmul_rn(u, keep[fst::mask_index(z, y, x, ksz, ksy)])
-               : u;
-    fst::write_faces(f, i, sy, sz, z, y, x, D, H, W, u, neg_mask, field);
-  }
+  const float u = fst::rbgs_update(f, prev, i, sy, sz, a, crec);
+  f[i] = color == 1 ? __fmul_rn(u, keep[i]) : u;
+  write_faces_keep(f, keep, i, sy, sz, z, y, x, D, H, W, u, neg_mask);
 }
 
 // the deferred keep multiply of the red cells after the last sweep
@@ -175,9 +168,7 @@ __global__ void keep_red_kernel(Fields fs, const float* __restrict__ keep,
   int z, y, x;
   const int field = field_plane<NF>(D, z);
   if (!colour_cell(0, z, H, W, y, x)) return;
-  float* f = field_ptr<NF>(fs, field);
-  const long i = (static_cast<long>(z) * (H + 2) + y) * (W + 2) + x;
-  f[i] = __fmul_rn(f[i], keep[fst::mask_index(z, y, x, ksz, ksy)]);
+  fst::keep_red_cell(field_ptr<NF>(fs, field), keep, ksz, ksy, H, W, z, y, x);
 }
 
 // the unpacked form's ghost edges and corners (two or three coordinates on

@@ -31,6 +31,18 @@
 // of rows 0 and Dl+1 and, with a keep, multiplies the whole padded slab by
 // it, ghosts included.
 //
+// The z-blocked solve (ROADMAP B22c). Replaces
+// tools/linsolve_blocked.py::pallas_rbgs_solve_blocked (_make_sweep_kernel),
+// one pallas_call per full padded sweep that streamed z-blocks through VMEM
+// with a two-row halo: red, black, x/y faces on the interior rows, the z
+// faces' interiors, then the whole padded field times keep. The card needs
+// no z-blocks: the padded kernels above hold one whole sweep once the black
+// half reads its z neighbours from the field's own rows 0 and Dl+1 (null
+// bplo/bphi; the red half's mirrors there sit on red columns, which no black
+// cell reads), and the closing launch keeps the borders of those rows
+// (zero_borders = 0), which B20 zeroes and the blocked sweep passes through.
+// Without keep the closing launch has nothing to do and is skipped.
+//
 // What bounds it on the H100: bytes and launches. A packed sweep reads the
 // field twice, rhs twice and keep once, and writes f1 and the output: at the
 // 256^3 slab over two ranks (128x256x256) that is ~235 MB of traffic
@@ -149,24 +161,27 @@ __global__ void padded_half_kernel(float* f, const float* __restrict__ prev,
   const long sz = static_cast<long>(H + 2) * (W + 2);
   const long i = z * sz + y * sy + x;
   const long p = y * sy + x;   // index in a padded plane
-  const float zp = (color == 1 && z == Dl) ? bphi[p] : f[i + sz];
-  const float zm = (color == 1 && z == 1) ? bplo[p] : f[i - sz];
+  const float zp =
+      (color == 1 && z == Dl && bphi != nullptr) ? bphi[p] : f[i + sz];
+  const float zm =
+      (color == 1 && z == 1 && bplo != nullptr) ? bplo[p] : f[i - sz];
   const float u = update(f[i + 1], f[i - 1], f[i + sy], f[i - sy], zp, zm,
                          prev[i], a, crec);
   f[i] = u;
   fst::write_faces(f, i, sy, sz, z, y, x, Dl, H, W, u, neg_mask, 0);
 }
 
-// Rows 0 and Dl+1: borders zeroed; with keep, the whole slab times keep.
+// With zero_borders, the borders of rows 0 and Dl+1 zeroed; with keep, the
+// whole slab times keep.
 __global__ void padded_finish_kernel(float* f, const float* __restrict__ keep,
-                                     int Dl, int H, int W) {
+                                     int Dl, int H, int W, int zero_borders) {
   const long n = static_cast<long>(Dl + 2) * (H + 2) * (W + 2);
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int x = static_cast<int>(i % (W + 2));
   const int y = static_cast<int>((i / (W + 2)) % (H + 2));
   const int z = static_cast<int>(i / (static_cast<long>(W + 2) * (H + 2)));
-  const bool border = (z == 0 || z == Dl + 1) &&
+  const bool border = zero_borders && (z == 0 || z == Dl + 1) &&
                       (x == 0 || x == W + 1 || y == 0 || y == H + 1);
   if (keep == nullptr) {
     if (border) f[i] = 0.0f;
@@ -223,7 +238,8 @@ int fst_sweep_packed_black(const void* f1, const void* rp, int rsz, int rsy,
   return fst::launch_status();
 }
 
-// One half-sweep (color 0 red, 1 black) of the padded slab f in place.
+// One half-sweep (color 0 red, 1 black) of the padded slab f in place;
+// null bplo/bphi read the slab's own rows 0 and Dl+1.
 int fst_sweep_half(void* f, const void* prev, const void* bplo,
                    const void* bphi, int Dl, int H, int W, float a, float crec,
                    int color, int neg_mask, void* stream) {
@@ -238,12 +254,13 @@ int fst_sweep_half(void* f, const void* prev, const void* bplo,
 
 // The padded sweep's closing launch; keep is null or the padded keep.
 int fst_sweep_finish(void* f, const void* keep, int Dl, int H, int W,
-                     void* stream) {
+                     int zero_borders, void* stream) {
   const long n = static_cast<long>(Dl + 2) * (H + 2) * (W + 2);
   const int block = 256;
   padded_finish_kernel<<<fst::cdiv(n, block), block, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(f), static_cast<const float*>(keep), Dl, H, W);
+      static_cast<float*>(f), static_cast<const float*>(keep), Dl, H, W,
+      zero_borders);
   return fst::launch_status();
 }
 

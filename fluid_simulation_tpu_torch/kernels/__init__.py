@@ -33,6 +33,12 @@ show which kernels carried it:
   sweep of one rank's slab in the sharded solve (``5·acc·n`` per step)
 - ``rbgs_sweep``             (kernels/linsolve_sweep.py)  one per padded
   slab sweep (no route, as in the JAX package)
+- ``prestep``                (kernels/prestep.py)         one per fused
+  pre-advection block of an empty scene (one cooperative launch; no route)
+- ``prestep_masked``         (kernels/prestep.py)         one per fused
+  pre-advection block of an obstacle scene
+- ``rbgs_solve_blocked``     (kernels/linsolve_blocked.py) one per sweep
+  of the z-blocked solve, ``acc`` per call (no route)
 
 These counters are the package's only global state.
 """
@@ -44,7 +50,8 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "project_stream": 0, "project_stream_masked": 0,
             "trilinear_gather": 0, "rbgs_solve3": 0,
             "rbgs_solve_unpacked": 0, "advect_split_fused": 0,
-            "rbgs_sweep_packed": 0, "rbgs_sweep": 0}
+            "rbgs_sweep_packed": 0, "rbgs_sweep": 0, "prestep": 0,
+            "prestep_masked": 0, "rbgs_solve_blocked": 0}
 
 
 def reset_launches() -> None:

@@ -73,7 +73,10 @@ SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _F, _F, _I, _P),
     "fst_sweep_half": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
-    "fst_sweep_finish": (_P, _P, _I, _I, _I, _P),
+    "fst_sweep_finish": (_P, _P, _I, _I, _I, _I, _P),
+    "fst_prestep": (_P,) * 8 + (_P, _I, _I, _P, _I, _I) + (_I,) * 4
+    + (_F,) * 6 + (_I, _I, _P),
+    "fst_prestep_blocks": (_P,),
 }
 
 

@@ -203,4 +203,4 @@ def _launch_padded(out, prev, keep, bp_lo, bp_hi, b, a, c, wall_mode):
             _build.call("fst_sweep_half", ptr(out), ptr(prev), ptr(bp_lo),
                         ptr(bp_hi), Dl, H, W, a32, crec, color, mask, stream)
         _build.call("fst_sweep_finish", ptr(out),
-                    None if keep is None else ptr(keep), Dl, H, W, stream)
+                    None if keep is None else ptr(keep), Dl, H, W, 1, stream)

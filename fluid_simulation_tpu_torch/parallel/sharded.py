@@ -777,7 +777,9 @@ def simulate_sharded(states: Sequence[FluidState], solids, params: SimParams,
     the per-rank padded solid slabs ``solids``. Returns ``(states,
     stats)``, or with ``record`` ``(states, (stats, frames))``: ``frames``
     holds every step's per-rank states (the analog of the JAX package's
-    recorded scan outputs)."""
+    recorded scan outputs). Unlike the JAX function it takes no ``mesh``:
+    each rank's slab is a tensor on that rank's device, so the states
+    carry the mesh."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     states = list(states)
@@ -795,17 +797,24 @@ def simulate_sharded(states: Sequence[FluidState], solids, params: SimParams,
 
 
 class ShardedWindTunnel:
-    """The wind tunnel over a 1-D z mesh: one rank per device of
-    ``devices`` (every visible card by default; a device may repeat, so one
+    """The wind tunnel over a 1-D z mesh, with the JAX package's signature:
+    one rank on each of the first ``n_devices`` (default: all) of
+    ``devices`` (default: every visible card). A device may repeat, so one
     card can hold several ranks; ``["cpu"] * n`` runs plain torch on the
-    host). BASELINE config 5 is 256^3 over two ranks. The 2-D (z, y) mesh
+    host. BASELINE config 5 is 256^3 over two ranks. The 2-D (z, y) mesh
     of the JAX package is not ported yet."""
 
     def __init__(self, params: SimParams, obstacles: Optional[np.ndarray] = None,
-                 devices: Optional[Sequence] = None,
-                 mesh_shape: Optional[Tuple[int, int]] = None):
+                 n_devices: Optional[int] = None,
+                 mesh_shape: Optional[Tuple[int, int]] = None, *,
+                 devices: Optional[Sequence] = None):
         devs = [torch.device(d) for d in
                 (devices if devices is not None else cuda_devices())]
+        if n_devices is not None:
+            if not 1 <= n_devices <= len(devs):
+                raise ValueError(f"n_devices={n_devices}: have {len(devs)} "
+                                 f"devices")
+            devs = devs[:n_devices]
         if any(d.type == "cuda" for d in devs) and \
                 not torch.cuda.is_available():
             raise RuntimeError("ShardedWindTunnel: no CUDA device; pass "

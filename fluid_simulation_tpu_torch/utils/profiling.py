@@ -63,13 +63,24 @@ def step_breakdown(wt, steps: int = 20, warmup: int = 5,
     under the profiler, and ``idle`` is ``1 - busy_ms / wall_ms``.
     ``top`` lists (name, launches per step, device ms per step)."""
     wall, cpu = host_ms(wt, steps, warmup)
+    prof = device_profile(wt.step, steps, top)
+    return dict(wall_ms=wall, cpu_ms=cpu, busy_ms=prof["busy_ms"],
+                idle=1.0 - prof["busy_ms"] / wall,
+                device_ops=prof["device_ops"], top=prof["top"])
+
+
+def device_profile(fn, calls: int, top: int = 12) -> Dict:
+    """Profile ``calls`` calls of ``fn`` (already warm) on the card:
+    ``busy_ms`` is the union of the device operations' intervals per call,
+    ``device_ops`` the device operations per call, ``top`` lists (name,
+    launches per call, device ms per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            wt.step()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name: Dict[str, list] = {}
@@ -78,12 +89,11 @@ def step_breakdown(wt, steps: int = 20, warmup: int = 5,
         n_us[0] += 1
         n_us[1] += e.time_range.elapsed_us()
     busy_ms = busy_us((e.time_range.start, e.time_range.end)
-                      for e in dev) / steps / 1e3
-    rows = sorted(((name, n / steps, us / steps / 1e3)
+                      for e in dev) / calls / 1e3
+    rows = sorted(((name, n / calls, us / calls / 1e3)
                    for name, (n, us) in by_name.items()),
                   key=lambda r: -r[2])
-    return dict(wall_ms=wall, cpu_ms=cpu, busy_ms=busy_ms,
-                idle=1.0 - busy_ms / wall, device_ops=len(dev) / steps,
+    return dict(busy_ms=busy_ms, device_ops=len(dev) / calls,
                 top=rows[:top])
 
 

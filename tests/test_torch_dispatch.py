@@ -23,8 +23,9 @@ import torch.nn.functional as F
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
-    linsolve as k1, linsolve_stream as k11, linsolve_sweep as k15,
-    project as k2, project_stream as k14, reset_launches, vorticity as k10)
+    linsolve as k1, linsolve_blocked as k22c, linsolve_stream as k11,
+    linsolve_sweep as k15, prestep as k22a, project as k2,
+    project_stream as k14, reset_launches, vorticity as k10)
 from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
@@ -220,6 +221,29 @@ def stub_sweep_padded(out, prev, keep, bp_lo, bp_hi, b, a, c, wall_mode):
                                    wall_mode, apply_keep=keep is not None))
 
 
+def stub_prestep(vx, vy, vz, outs, rhs, p, fluid_i, keep_vel_i, a, c, acc,
+                 wall_mode):
+    for t in (vx, vy, vz, *outs, rhs, p):
+        _operand(t, vx.shape)
+    _distinct(vx, vy, vz, *outs, rhs, p)
+    assert (fluid_i is None) == (keep_vel_i is None)
+    if fluid_i is not None:
+        for m in (fluid_i, keep_vel_i):
+            _mask(m, [n - 2 for n in vx.shape])
+    for dst, src in zip(outs, k22a.prestep_plain(vx, vy, vz, fluid_i,
+                                                 keep_vel_i, a, c, acc,
+                                                 wall_mode)):
+        dst.copy_(src)
+
+
+def stub_blocked(out, prev, keep, b, a, c, acc, wall_mode):
+    for t in (out, prev) + (() if keep is None else (keep,)):
+        _operand(t, out.shape)
+    _distinct(out, prev)
+    out.copy_(k22c.rbgs_solve_blocked_plain(b, out, prev, keep, a, c, acc,
+                                            wall_mode, keep is None))
+
+
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
@@ -237,7 +261,9 @@ def card(monkeypatch):
                             (k14, "_launch_div", stub_div),
                             (k14, "_launch_grad", stub_grad),
                             (k15, "_launch_packed", stub_sweep_packed),
-                            (k15, "_launch_padded", stub_sweep_padded)):
+                            (k15, "_launch_padded", stub_sweep_padded),
+                            (k22a, "_launch", stub_prestep),
+                            (k22c, "_launch", stub_blocked)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -596,10 +622,14 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
         plane, plane.clone(), plane.clone(), plane.clone(), 0.5, 4.0)
     out18 = k15.rbgs_sweep(2, vx, g, m.keep_vel, vy[0].clone(),
                            vy[-1].clone(), 0.5, 4.0)
+    out19 = k22a.prestep(vx, vy, vz, None, None, 0.5, 4.0, acc=2)
+    out20 = k22a.prestep(vx, vy, vz, m.fluid_i, kv, 0.5, 4.0, acc=2)
+    out21 = k22c.rbgs_solve_blocked(1, vx, g, m.keep_vel, 0.5, 4.0, acc=1)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
-              out13, *out14, out15, out16, *out17, out18):
+              out13, *out14, out15, out16, *out17, out18, *out19, *out20,
+              out21):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -619,7 +649,72 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     assert torch.equal(out18, k15.rbgs_sweep_plain(
         2, vx, g, m.keep_vel, vy[0], vy[-1], 0.5, 4.0))
     assert len(out17) == 7 and out17[0].shape == INTERIOR
+    # the retired kernels give what their plain versions give
+    for got, want in zip(out19 + out20, k22a.prestep_plain(
+            vx, vy, vz, None, None, 0.5, 4.0, 2) + k22a.prestep_plain(
+            vx, vy, vz, m.fluid_i, kv, 0.5, 4.0, 2)):
+        assert torch.equal(got, want)
+    assert torch.equal(out21, k22c.rbgs_solve_blocked_plain(
+        1, vx, g, m.keep_vel, 0.5, 4.0, 1))
     assert LAUNCHES == {k: 1 for k in LAUNCHES}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_prestep_is_one_launch(card, masked):
+    """One call, one count of its own, no other counter: the chain's
+    wrappers never run on the card's branch."""
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2)
+    m = build_masks(obs, device=CPU)
+    fl, kv = (m.fluid_i, m.keep_vel[1:-1, 1:-1, 1:-1]) if masked else (None,
+                                                                         None)
+    rng = np.random.default_rng(8)
+    vel = [torch.tensor(rng.normal(size=PAD), dtype=torch.float32)
+           for _ in range(3)]
+    got = k22a.prestep(*vel, fl, kv, 0.5, 4.0, acc=3, wall_mode="noslip")
+    for a, b in zip(got, k22a.prestep_plain(*vel, fl, kv, 0.5, 4.0, 3,
+                                            "noslip")):
+        assert torch.equal(a, b)
+    name = "prestep_masked" if masked else "prestep"
+    assert LAUNCHES == _counts(**{name: 1})
+
+
+def test_blocked_solve_counts_its_sweeps(card):
+    m = build_masks(add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2),
+                    device=CPU)
+    rng = np.random.default_rng(9)
+    f, g = (torch.tensor(rng.normal(size=PAD), dtype=torch.float32)
+            for _ in range(2))
+    got = k22c.rbgs_solve_blocked(0, f, g, m.keep_scalar, 1.0, 6.0, acc=5)
+    assert torch.equal(got, k22c.rbgs_solve_blocked_plain(
+        0, f, g, m.keep_scalar, 1.0, 6.0, 5))
+    assert LAUNCHES == _counts(rbgs_solve_blocked=5)
+    k22c.rbgs_solve_blocked(3, f, g, None, 0.8, 5.8, acc=4,
+                            wall_mode="noslip", empty_scene=True)
+    assert LAUNCHES == _counts(rbgs_solve_blocked=9)
+
+
+def test_retired_kernels_raise_outside_their_gates(card, monkeypatch):
+    """Outside the gate the card's branch raises; nothing runs the plain
+    version or the chain in the kernel's place."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card's branch")
+
+    monkeypatch.setattr(k22a, "prestep_plain", refuse)
+    thin = torch.zeros((3, H + 2, W + 2))
+    with pytest.raises(ValueError, match="gate"):
+        k22a.prestep(thin, thin.clone(), thin.clone(), None, None, 0.5, 4.0)
+    bf = torch.zeros(PAD, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k22a.prestep(bf, bf.clone(), bf.clone(), None, None, 0.5, 4.0)
+    f = torch.zeros(PAD)
+    with pytest.raises(ValueError, match="x stride"):
+        k22a.prestep(f, f.clone(), f.clone(), torch.ones(INTERIOR),
+                     torch.ones((W, H, D)).transpose(0, 2), 0.5, 4.0)
+    with pytest.raises(ValueError, match="keep"):
+        k22c.rbgs_solve_blocked(1, f, f.clone(), None, 0.5, 4.0)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k22c.rbgs_solve_blocked(1, bf, bf.clone(), bf.clone(), 0.5, 4.0)
+    assert set(LAUNCHES.values()) == {0}
 
 
 def test_launch_error_raises(monkeypatch):
@@ -651,7 +746,8 @@ def test_sources_and_sign_mask():
     names = {s.name for s in _build.sources()}
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
-            "trilinear.cu", "rbgs_sweep.cu", "common.cuh"} <= names
+            "trilinear.cu", "rbgs_sweep.cu", "prestep.cu",
+            "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
     assert _build.neg_mask([(-1.0, 1.0, 1.0), (1.0, -1.0, 1.0),

@@ -165,6 +165,73 @@ def test_load_failure_keeps_obstacles(capsys):
         load_stl_into_obstacles(SceneParams(stl_path=STL, voxelizer="x"), obs)
 
 
+def _cube_stl(path, lo=-2.0, hi=2.0):
+    """The cube of tests/test_native.py::_cube_stl, written to ``path``."""
+    c = np.array([[x, y, z] for x in (lo, hi) for y in (lo, hi)
+                  for z in (lo, hi)], dtype=np.float32)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1),
+             (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    tris = []
+    for a, b, cc, d in quads:
+        tris += [[c[a], c[b], c[cc]], [c[a], c[cc], c[d]]]
+    with open(path, "wb") as f:
+        f.write(b"\0" * 80)
+        f.write(struct.pack("<I", len(tris)))
+        for t in tris:
+            f.write(struct.pack("<3f", 0, 0, 1))
+            for v in t:
+                f.write(struct.pack("<3f", *v))
+            f.write(struct.pack("<H", 0))
+    return str(path)
+
+
+# the inputs on which the NumPy and the C++ engine differ by a cell
+CUBE_SCENE = dict(voxelizer="ray_parity", rot_x=15, rot_y=25, rot_z=35,
+                  scale=0.6)
+
+
+@pytest.mark.parametrize("use_native,solids", [(True, 1708),
+                                               (False, 1709)])
+def test_ray_parity_loader_matches_jax_engines(tmp_path, use_native, solids):
+    """The cube at 64x32x32: by default the port's loader gives the JAX
+    loader's default mask (the C++ engine's, 1708 solids); with
+    ``use_native=False`` the NumPy engine's 1709 (that engine equals the
+    JAX one: ``test_ray_parity_matches_jax_numpy_engine``)."""
+    from fluid_simulation_tpu.native import load_library
+    try:
+        load_library()
+    except OSError:
+        pytest.skip("the JAX package's native library is unavailable")
+    path = _cube_stl(tmp_path / "cube.stl")
+    got = load_stl_into_obstacles(SceneParams(stl_path=path, **CUBE_SCENE),
+                                  empty_obstacles(64, 32, 32),
+                                  use_native=use_native)
+    if use_native:
+        want = jvox.load_stl_into_obstacles(
+            JaxSceneParams(stl_path=path, **CUBE_SCENE),
+            empty_obstacles(64, 32, 32))
+        np.testing.assert_array_equal(got, want)
+    assert int(got.sum()) == solids
+
+
+def test_native_build_failure_raises(tmp_path, monkeypatch):
+    """A compiler that cannot run is an error naming it, through the
+    loader too: the port never falls back to the NumPy engine."""
+    from fluid_simulation_tpu_torch.native import geometry
+    monkeypatch.setattr(geometry, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(geometry, "CXX", str(tmp_path / "no-such-g++"))
+    geometry.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="no-such-g"):
+            geometry.build()
+        with pytest.raises(RuntimeError, match="no-such-g"):
+            load_stl_into_obstacles(
+                SceneParams(stl_path=_cube_stl(tmp_path / "cube.stl"),
+                            **CUBE_SCENE), empty_obstacles(16, 8, 8))
+    finally:
+        geometry.library.cache_clear()
+
+
 def test_golden_stl_flow_end_to_end():
     """The reference main()'s path through the port: the golden's exact
     mask (the reference voxelizer jitters randomly, so its mask is the

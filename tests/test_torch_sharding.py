@@ -294,6 +294,30 @@ def test_entry_points_default_to_the_card():
         make_mesh()
 
 
+@pytest.mark.parametrize("positional", [False, True])
+def test_n_devices_takes_the_first_devices(positional):
+    """The JAX signature: ``n_devices`` picks the first n of ``devices``,
+    by keyword or in the third position, and one step equals the run given
+    just those devices, bitwise."""
+    p = SimParams(**PARAMS)
+    sw = (ShardedWindTunnel(p, None, 2, devices=_cpu(4)) if positional else
+          ShardedWindTunnel(p, n_devices=2, devices=_cpu(4)))
+    assert sw.nz == 2 and len(sw.devices) == 2 and len(sw.state) == 2
+    ref = ShardedWindTunnel(p, devices=_cpu(2))
+    rng = np.random.default_rng(6)
+    fields = [rng.uniform(-1, 1, size=(2,) + sw.state[0].vx.shape)
+              .astype(np.float32) for _ in range(4)]
+    sw.state = sharded_state_from_numpy(fields, sw.devices)
+    ref.state = sharded_state_from_numpy(fields, ref.devices)
+    sw.step()
+    ref.step()
+    for got, want in zip(sharded_state_to_numpy(sw.state),
+                         sharded_state_to_numpy(ref.state)):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="n_devices"):
+        ShardedWindTunnel(p, n_devices=5, devices=_cpu(4))
+
+
 def test_two_d_mesh_raises_everywhere():
     with pytest.raises(NotImplementedError, match="A13b"):
         ShardedWindTunnel(SimParams(**PARAMS), devices=_cpu(4),
