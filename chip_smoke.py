@@ -91,7 +91,22 @@ final ``ok`` line):
     chain's and its bound; the blocked solve against its plain version,
     bitwise, at 128x64x64 and 256^3 with the spheres' keep masks, its
     times and bound;
-17. ms/step of the kernel path and the plain path, timed with CUDA events.
+17. the colour-packed solve (B22b, ``cpack``): one call of each entry
+    point with the counts set to 0 just before and read just after (the
+    resident solve with the bench sphere's keep: one K1 keep solve and one
+    ``rbgs_solve_cpack``; the streamed one at acc 15: one blocked sweep
+    and 14 ``rbgs_solve_cpack_stream``); at 128x64x64 with the bench
+    sphere, 256x64x64 with a sphere at the same place along the tunnel
+    and 256^3 with its sphere, b = 0..3, keep and empty scene, reference
+    and no-slip walls: each entry point against its plain version, the
+    other entry point and K1, bitwise; per call at each shape its event
+    and device ms, device ops and bound beside K1 keep's;
+18. the launch-overhead probe (B23's ``exp_overhead``, ``overhead``): the
+    tiny kernel against its plain version, bitwise; one eager iteration of
+    every probe row with the counts set to 0 just before and read just
+    after; then every row eager and replayed from a CUDA graph (replay
+    bitwise to eager), n = 50, in µs per iteration;
+19. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -178,6 +193,15 @@ KERNELS = {
                        "tools/prestep_pallas.py:176"),
     "rbgs_solve_blocked": ("fluid_simulation_tpu_torch/csrc/rbgs_sweep.cu",
                            "tools/linsolve_blocked.py:180"),
+    # B22b: one pair of half-sweep kernels for both TPU entry points
+    "rbgs_solve_cpack": ("fluid_simulation_tpu_torch/csrc/rbgs_cpack.cu",
+                         "tools/linsolve_cpack.py:206"),
+    "rbgs_solve_cpack_stream": (
+        "fluid_simulation_tpu_torch/csrc/rbgs_cpack.cu",
+        "tools/linsolve_cpack.py:504"),
+    # B23: the launch-overhead probe's tiny kernel
+    "probe_add1": ("fluid_simulation_tpu_torch/csrc/probe.cu",
+                   "tools/exp_overhead.py:53"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -189,7 +213,10 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "rbgs_sweep_packed": 9, "rbgs_sweep": 9,
                 # per sweep of its four solves (three diffusions and the
                 # Poisson solve); the projection adds 16 (masked 64) once
-                "prestep": 8, "prestep_masked": 9, "rbgs_solve_blocked": 9}
+                "prestep": 8, "prestep_masked": 9, "rbgs_solve_blocked": 9,
+                # per sweep with a keep (8 on an empty scene), as K1 keep
+                "rbgs_solve_cpack": 9, "rbgs_solve_cpack_stream": 9,
+                "probe_add1": 1}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -248,16 +275,25 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def compare(self, name, got, want, label, ref="plain"):
-        torch = self.torch
+    def diff(self, got, want):
+        """max |got - want| over tensors or tuples of them; inf when the
+        shapes differ or a difference is NaN."""
         got = got if isinstance(got, (tuple, list)) else (got,)
         want = want if isinstance(want, (tuple, list)) else (want,)
-        torch.cuda.synchronize()
-        ok = len(got) == len(want) and all(
-            a.shape == b.shape for a, b in zip(got, want))
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want)) \
-            if ok else float("inf")
-        ok = ok and err == 0.0
+        self.torch.cuda.synchronize()
+        if len(got) != len(want) or any(a.shape != b.shape
+                                        for a, b in zip(got, want)):
+            return float("inf")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        return err if err == err else float("inf")
+
+    def compare(self, name, got, want, label, ref="plain"):
+        self.record(name, self.diff(got, want), label, ref)
+
+    def record(self, name, err, label, ref="plain"):
+        """Keep ``err``, a max |kernel - ref|, as the kernel's and fail
+        unless it is 0."""
+        ok = err == 0.0
         k = self.kern[name]
         k["max_abs_err"] = max(k["max_abs_err"], err)
         print(f"   {name:14s} {label:34s} max|kernel-{ref}| = {err:.3g} "
@@ -1281,6 +1317,167 @@ class Smoke:
             del mb, fb, gb
         torch.cuda.empty_cache()
 
+    def cpack(self):
+        """B22b, the colour-packed solve, through both entry points: the
+        counts of one call each, then both against their plain versions,
+        each other and K1 at three grids, and their times (phase 17)."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
+        from fluid_simulation_tpu_torch.kernels.linsolve_cpack import (
+            rbgs_solve_cpack, rbgs_solve_cpack_plain, rbgs_solve_cpack_stream,
+            rbgs_solve_cpack_stream_plain)
+        from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.scene.primitives import (
+            add_sphere, empty_obstacles)
+        from fluid_simulation_tpu_torch.utils.profiling import (
+            big_sphere, device_profile, flagship_sphere)
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 8)
+        acc = 15
+        # (interior, scene, kernel reps, plain reps, profiled calls); the
+        # 256x64x64 grid is tools/exp_cpack.py:19's default, its sphere the
+        # bench sphere's at the same place along the tunnel
+        grids = (((128, 64, 64), flagship_sphere, 20, 5, 10),
+                 ((256, 64, 64), lambda: add_sphere(
+                     empty_obstacles(256, 64, 64), cx=80, cy=32, cz=32,
+                     radius=10), 20, 3, 10),
+                 ((256, 256, 256), lambda: big_sphere(256, 256, 256), 5, 1,
+                  3))
+        for (W, H, D), scene, reps, plain_reps, calls in grids:
+            pad, n, main = (D + 2, H + 2, W + 2), W * H * D, W == 128
+            tag = f"{W}x{H}x{D}"
+            m = build_masks(scene(), device="cuda")
+            a, c = diffusion_coeffs(W, H, D, 0.05, 2e-5)
+            f, g = self.rand(rng, pad), self.rand(rng, pad)
+            if main:
+                self.cpack_counts(f, g, m.keep_vel, a, c, acc)
+            errs = {}
+            for b in range(4):
+                for empty in (False, True):
+                    keep = None if empty else (m.keep_vel if b
+                                               else m.keep_scalar)
+                    for wall in ("reference", "noslip"):
+                        args = (b, f, g, keep, a, c, acc, wall, empty)
+                        kr = rbgs_solve_cpack(*args)
+                        ks = rbgs_solve_cpack_stream(*args)
+                        k1 = rbgs_solve(b, f, g, a, c, acc, wall, keep)
+                        for key, got, want in (
+                                (("rbgs_solve_cpack", "plain"), kr,
+                                 rbgs_solve_cpack_plain(*args)),
+                                (("rbgs_solve_cpack", "K1"), kr, k1),
+                                (("rbgs_solve_cpack_stream", "plain"), ks,
+                                 rbgs_solve_cpack_stream_plain(*args)),
+                                (("rbgs_solve_cpack_stream", "K1"), ks, k1),
+                                (("rbgs_solve_cpack_stream", "resident"), ks,
+                                 kr)):
+                            errs[key] = max(errs.get(key, 0.0),
+                                            self.diff(got, want))
+            for (name, ref), err in errs.items():
+                self.record(name, err, f"{tag} b=0..3 x2 scenes x2 walls",
+                            ref)
+
+            args = (1, f, g, m.keep_vel, a, c, acc)
+            k1f = lambda: rbgs_solve(1, f, g, a, c, acc,  # noqa: E731
+                                     keep=m.keep_vel)
+            k1_ms, k1_dev = self.event_ms(k1f, reps), device_profile(k1f,
+                                                                      calls)
+            print(f"   K1 keep {tag}: event {k1_ms:.4f} ms, device "
+                  f"{k1_dev['busy_ms']:.4f} ms in {k1_dev['device_ops']:g} "
+                  f"ops per call", flush=True)
+            self.top_ops(k1_dev)
+            for name, kf, pf in (
+                    ("rbgs_solve_cpack", lambda: rbgs_solve_cpack(*args),
+                     lambda: rbgs_solve_cpack_plain(*args)),
+                    ("rbgs_solve_cpack_stream",
+                     lambda: rbgs_solve_cpack_stream(*args),
+                     lambda: rbgs_solve_cpack_stream_plain(*args))):
+                ms, pms = self.event_ms(kf, reps), self.event_ms(pf,
+                                                                 plain_reps)
+                dev = device_profile(kf, calls)
+                if main:
+                    self.kern[name].update(ms=ms, plain_ms=pms)
+                print(f"   {name} {tag}: event {ms:.4f} ms, device "
+                      f"{dev['busy_ms']:.4f} ms in {dev['device_ops']:g} ops"
+                      f" per call (K1 keep {k1_ms:.4f} / {k1_dev['busy_ms']:.4f}"
+                      f"); plain {pms:.4f} ms", flush=True)
+                self.top_ops(dev)
+                self.bound(name, (f, g[1:-1, 1:-1, 1:-1],
+                                  m.keep_vel[1:-1, 1:-1, 1:-1], f),
+                           acc * OPS_PER_CELL[name] * n, record=main)
+            del m, f, g
+        torch.cuda.empty_cache()
+
+    def top_ops(self, prof, rows=4):
+        """The costliest device operations of a ``device_profile``."""
+        for name, n, ms in prof["top"][:rows]:
+            print(f"      {ms:9.4f} ms {n:5.1f}x per call  {name[:70]}",
+                  flush=True)
+
+    def cpack_counts(self, f, g, keep, a, c, acc):
+        """One call of each colour-packed entry point, with the counts set
+        to 0 just before and read just after each."""
+        from fluid_simulation_tpu_torch.kernels import (
+            LAUNCHES, reset_launches)
+        from fluid_simulation_tpu_torch.kernels.linsolve_cpack import (
+            rbgs_solve_cpack, rbgs_solve_cpack_stream)
+        for name, solve, want in (
+                ("rbgs_solve_cpack", rbgs_solve_cpack,
+                 {"rbgs_solve_keep": 1, "rbgs_solve_cpack": 1}),
+                ("rbgs_solve_cpack_stream", rbgs_solve_cpack_stream,
+                 {"rbgs_solve_blocked": 1,
+                  "rbgs_solve_cpack_stream": acc - 1})):
+            reset_launches()
+            solve(1, f, g, keep, a, c, acc)
+            self.torch.cuda.synchronize()
+            counts = {k: v for k, v in LAUNCHES.items() if v}
+            print(f"   launches of one {name} call: {counts}", flush=True)
+            self.check(counts == want, f"{name}: counts {counts} != {want}")
+            self.kern[name]["launches"] = counts[name]
+
+    def overhead(self):
+        """B23's exp_overhead: the tiny kernel against its plain version;
+        the counts of one eager iteration of every row; every row eager
+        and replayed from a CUDA graph (phase 18)."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import (
+            LAUNCHES, reset_launches)
+        from fluid_simulation_tpu_torch.kernels.probe import (
+            add_one, add_one_plain)
+        from fluid_simulation_tpu_torch.tools import exp_overhead
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 9)
+        x = self.rand(rng, (8, 128))
+        self.compare("probe_add1", add_one(x), add_one_plain(x), "(8, 128)")
+        self.time_pair("probe_add1", lambda: add_one(x),
+                       lambda: add_one_plain(x), 200, "(8, 128)")
+        self.bound("probe_add1", (x, x), OPS_PER_CELL["probe_add1"]
+                   * x.numel())
+        # one PyTorch call computes x + 1: torch.add
+        self.kern["probe_add1"]["library_ms"] = self.event_ms(
+            lambda: torch.add(x, 1.0), 200)
+
+        rows = exp_overhead.rows("cuda")
+        reset_launches()
+        for row in rows:
+            row.body()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        want = {"probe_add1": 21, "rbgs_solve": 10, "project_empty": 1,
+                "prestep": 1}
+        print(f"   launches of one eager iteration of every row: {counts}",
+              flush=True)
+        self.check(counts == want, f"overhead rows: counts {counts} != "
+                   f"{want}")
+        self.kern["probe_add1"]["launches"] = counts["probe_add1"]
+        print(f"   {'row':36s} (n = 50; replay bitwise to eager)",
+              flush=True)
+        for row in rows:
+            r = exp_overhead.measure(row, 50)
+            print(f"   {exp_overhead.format_row(r)}", flush=True)
+
     def stitched(self, sw):
         """A sharded run's state stitched to the single-card layout, read
         as ``check_state``, ``check_scene`` and ``check_parity`` read a
@@ -1433,6 +1630,9 @@ PHASES = [
     ("retired_kernels", "kernels vs plain: the fused prestep and the "
      "blocked solve", "retired_kernels"),
     ("sharded", "ShardedWindTunnel, every rank on one card", "sharded"),
+    ("cpack", "kernels vs plain: the colour-packed solve", "cpack"),
+    ("overhead", "launch overhead: eager against CUDA-graph replay",
+     "overhead"),
     ("times", "times", "times"),
 ]
 

@@ -39,6 +39,14 @@ show which kernels carried it:
   pre-advection block of an obstacle scene
 - ``rbgs_solve_blocked``     (kernels/linsolve_blocked.py) one per sweep
   of the z-blocked solve, ``acc`` per call (no route)
+- ``rbgs_solve_cpack``       (kernels/linsolve_cpack.py)  one per
+  colour-packed solve that sweeps the halves (sweep 1 counts under K1's
+  own counter; no route)
+- ``rbgs_solve_cpack_stream`` (kernels/linsolve_cpack.py) one per
+  colour-packed sweep of the streamed entry point, ``acc - 1`` per call
+  (sweep 1 counts under ``rbgs_solve_blocked``; no route)
+- ``probe_add1``             (kernels/probe.py)           one per ``o = x + 1``
+  of the launch-overhead probe (``tools/exp_overhead.py``; no route)
 
 These counters are the package's only global state.
 """
@@ -51,7 +59,9 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "trilinear_gather": 0, "rbgs_solve3": 0,
             "rbgs_solve_unpacked": 0, "advect_split_fused": 0,
             "rbgs_sweep_packed": 0, "rbgs_sweep": 0, "prestep": 0,
-            "prestep_masked": 0, "rbgs_solve_blocked": 0}
+            "prestep_masked": 0, "rbgs_solve_blocked": 0,
+            "rbgs_solve_cpack": 0, "rbgs_solve_cpack_stream": 0,
+            "probe_add1": 0}
 
 
 def reset_launches() -> None:

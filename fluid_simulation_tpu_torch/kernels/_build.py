@@ -77,6 +77,9 @@ SIGNATURES = {
     "fst_prestep": (_P,) * 8 + (_P, _I, _I, _P, _I, _I) + (_I,) * 4
     + (_F,) * 6 + (_I, _I, _P),
     "fst_prestep_blocks": (_P,),
+    "fst_cpack_red": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "fst_cpack_black": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "fst_probe_add1": (_P, _P, _I, _P),
 }
 
 

@@ -1,0 +1,239 @@
+"""Launch overhead on the card: the marginal cost per iteration of
+back-to-back kernel calls, eager and replayed from a CUDA graph.
+
+    python -m fluid_simulation_tpu_torch.tools.exp_overhead [--device cuda]
+        [--n 100] [--shape W H D] [--acc 15]
+
+Port of ``tools/exp_overhead.py`` (ROADMAP B23), which timed scan bodies
+of K back-to-back kernel calls inside one compiled ``jax.lax.scan``, with
+no host dispatch per call. Its rows, and one more:
+
+- (a) the tiny kernel ``o = x + 1`` on (8, 128) f32 (``kernels/probe.py``)
+  chained K = 1, 4, 16 times;
+- (b) the packed solve (K1, ``kernels/linsolve.rbgs_solve``: empty scene,
+  b = 1, a = 1e-4, c = 1.0006, ``prev`` = the field) chained K = 1, 3
+  times at ``acc``, and alone at acc 1, 5 and ``acc``, on the padded
+  field of ``--shape`` (default the reference's 128x64x64);
+- (c) one torch elementwise expression over the same field,
+  ``c * 1.0001 + 0.0001`` (two launches);
+- (d) the step's pre-advection block at ``--shape``: the chain K1 x3 + K2
+  and the one cooperative ``prestep`` (``kernels/prestep.py``, B22a).
+
+Every row has two arms. *eager*: the wrappers called back to back, each
+launch paid for by the host, as the wind tunnel runs them. *graph*: the
+same body captured once with ``torch.cuda.graph`` and replayed, one host
+call per iteration: the counterpart of JAX's one compiled scan. A row's
+cost is JAX's slope, the best of 3 of ``(t(3n) - t(n)) / 2n``, timed with
+CUDA events on the card. The replay's output must equal the eager
+output bit for bit; a launch that cannot be captured raises. The graphs
+live in this module only: no route, wrapper or step of the package uses
+one. ``LAUNCHES`` moves at capture, not at replay, so launch counts come
+from the eager arm.
+
+``--device cpu`` runs the eager arm on the host clock at whatever
+``--shape`` is given (a test runs it tiny); it prints no device metric
+and has no graph arm.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import subprocess
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+from fluid_simulation_tpu_torch.config import SimParams
+from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
+from fluid_simulation_tpu_torch.kernels.prestep import prestep
+from fluid_simulation_tpu_torch.kernels.probe import add_one
+from fluid_simulation_tpu_torch.kernels.project import project_empty
+from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+
+# exp_overhead.py:80-86: the solve's coefficients
+SOLVE_A, SOLVE_C = 1e-4, 1.0006
+
+
+@dataclass
+class Row:
+    """One probe row: ``body`` is one iteration, the row's calls chained
+    from fixed inputs; it returns its output tensor or tensors."""
+    name: str
+    body: Callable[[], Any]
+
+
+def _chain(fn, x, k):
+    for _ in range(k):
+        x = fn(x)
+    return x
+
+
+def _pre_advection_chain(vel, a, c, acc):
+    """K1 x3 + K2: the three diffusions (prev = the component), then the
+    projection of an empty scene."""
+    w = [rbgs_solve(b, v, v, a, c, acc) for b, v in zip((1, 2, 3), vel)]
+    return project_empty(*w, acc)
+
+
+def rows(device="cuda", shape=(128, 64, 64), acc: int = 15) -> List[Row]:
+    """The probe's rows, their inputs on ``device`` (``shape`` is the
+    interior (W, H, D))."""
+    W, H, D = shape
+    pad = (D + 2, H + 2, W + 2)
+    x0 = torch.zeros((8, 128), device=device)
+    f0 = torch.zeros(pad, device=device) + 0.1
+
+    def solve(f, sweeps=acc):
+        return rbgs_solve(1, f, f, SOLVE_A, SOLVE_C, sweeps)
+
+    out = [Row(f"(a) add_one xK={k}", functools.partial(_chain, add_one, x0,
+                                                        k))
+           for k in (1, 4, 16)]
+    out += [Row(f"(b) rbgs_solve acc={acc} xK={k}",
+                functools.partial(_chain, solve, f0, k)) for k in (1, 3)]
+    out += [Row(f"(b) rbgs_solve acc={s}", functools.partial(solve, f0, s))
+            for s in (1, 5, acc)]
+    out.append(Row("(c) torch f*1.0001+0.0001",
+                   lambda: f0 * 1.0001 + 0.0001))
+    rng = np.random.default_rng(0)
+    vel = [torch.tensor(rng.normal(size=pad).astype(np.float32),
+                        device=device) for _ in range(3)]
+    p = SimParams()
+    a, c = diffusion_coeffs(W, H, D, p.dt, p.diff)
+    out.append(Row("(d) pre-advection chain K1 x3 + K2",
+                   functools.partial(_pre_advection_chain, vel, a, c, acc)))
+    out.append(Row("(d) pre-advection prestep",
+                   functools.partial(prestep, *vel, None, None, a, c, acc)))
+    return out
+
+
+def host_timer(fn) -> float:
+    """Seconds of ``fn()`` on the host clock."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def event_timer(fn) -> float:
+    """Seconds of ``fn()`` on the current stream, between two CUDA events
+    recorded on an idle card."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def slope(body, n: int = 100, timer=event_timer) -> float:
+    """Marginal seconds per iteration of ``body``: the best of 3 of
+    ``(t(3n) - t(n)) / 2n``, after one warm-up of each length
+    (exp_overhead.py:27-46)."""
+    def run(k):
+        return lambda: [body() for _ in range(k)]
+
+    timer(run(n))
+    timer(run(3 * n))
+    best = float("inf")
+    for _ in range(3):
+        t1 = timer(run(n))
+        t3 = timer(run(3 * n))
+        best = min(best, (t3 - t1) / (2 * n))
+    return best
+
+
+def capture(body, device="cuda"):
+    """``(graph, outputs)``: ``body`` captured once with
+    ``torch.cuda.graph`` after three warm-up calls on a side stream. The
+    outputs are the graph's own tensors, rewritten by every replay. Raises
+    on the CPU, and wherever a launch cannot be captured."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"exp_overhead: a CUDA graph needs the card, got "
+                           f"{device}; the CPU runs the eager arm only")
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    return graph, out
+
+
+def _tensors(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def measure(row: Row, n: int, device="cuda") -> dict:
+    """The row's eager slope and, on the card, its graph slope, in seconds
+    per iteration. On the card the replay's output is first held to the
+    eager output, bit for bit."""
+    cpu = torch.device(device).type != "cuda"
+    timer = host_timer if cpu else event_timer
+    result = {"name": row.name, "eager_s": slope(row.body, n, timer=timer),
+              "graph_s": None}
+    if cpu:
+        return result
+    want = _tensors(row.body())
+    graph, out = capture(row.body, device)
+    graph.replay()
+    torch.cuda.synchronize()
+    got = _tensors(out)
+    if len(got) != len(want) or not all(
+            a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(got, want)):
+        raise RuntimeError(f"exp_overhead: {row.name}: the graph replay "
+                           f"differs from the eager output")
+    result["graph_s"] = slope(graph.replay, n, timer=timer)
+    del graph, out
+    return result
+
+
+def format_row(r: dict) -> str:
+    graph = ("graph: none on the host" if r["graph_s"] is None
+             else f"graph {r['graph_s'] * 1e6:11.2f} us/iter")
+    return (f"{r['name']:36s} eager {r['eager_s'] * 1e6:11.2f} us/iter   "
+            f"{graph}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: the eager arm on the host "
+                         "clock, no device metric")
+    ap.add_argument("--n", type=int, default=100,
+                    help="iterations of the short run (the long one is 3n)")
+    ap.add_argument("--shape", type=int, nargs=3, default=(128, 64, 64),
+                    metavar=("W", "H", "D"), help="interior of rows (b)-(d)")
+    ap.add_argument("--acc", type=int, default=15,
+                    help="sweeps per solve")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("exp_overhead: no CUDA device (pass --device "
+                             "cpu for the eager arm on the host clock)")
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(f"{card}; CUDA events, n = {args.n}", flush=True)
+    else:
+        print(f"host CPU, host clock (no device metric), n = {args.n}",
+              flush=True)
+    for row in rows(device, tuple(args.shape), args.acc):
+        print(format_row(measure(row, args.n, device)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

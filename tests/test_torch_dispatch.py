@@ -23,9 +23,10 @@ import torch.nn.functional as F
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
-    linsolve as k1, linsolve_blocked as k22c, linsolve_stream as k11,
-    linsolve_sweep as k15, prestep as k22a, project as k2,
-    project_stream as k14, reset_launches, vorticity as k10)
+    linsolve as k1, linsolve_blocked as k22c, linsolve_cpack as k22b,
+    linsolve_stream as k11, linsolve_sweep as k15, prestep as k22a,
+    probe as k23, project as k2, project_stream as k14, reset_launches,
+    vorticity as k10)
 from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
@@ -33,6 +34,7 @@ from fluid_simulation_tpu_torch.ops.advect import trilinear_gather
 from fluid_simulation_tpu_torch.scene.masks import build_masks
 from fluid_simulation_tpu_torch.scene.primitives import (
     add_sphere, empty_obstacles)
+from fluid_simulation_tpu_torch.tools import exp_overhead
 
 torch.set_num_threads(1)
 
@@ -244,6 +246,22 @@ def stub_blocked(out, prev, keep, b, a, c, acc, wall_mode):
                                             wall_mode, keep is None))
 
 
+def stub_cpack(R, B, PR, PB, KB, a32, crec, signs, nsweep):
+    for t in (R, B, PR, PB) + (() if KB is None else (KB,)):
+        _operand(t, R.shape)
+    _distinct(R, B, PR, PB, *(() if KB is None else (KB,)))
+    for dst, src in zip((R, B), k22b._sweeps_plain(R, B, PR, PB, KB, a32,
+                                                   crec, signs, nsweep)):
+        dst.copy_(src)
+    return R, B
+
+
+def stub_probe(x, out):
+    _operand(out, x.shape)
+    _distinct(x, out)
+    out.copy_(k23.add_one_plain(x))
+
+
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
@@ -263,7 +281,9 @@ def card(monkeypatch):
                             (k15, "_launch_packed", stub_sweep_packed),
                             (k15, "_launch_padded", stub_sweep_padded),
                             (k22a, "_launch", stub_prestep),
-                            (k22c, "_launch", stub_blocked)):
+                            (k22c, "_launch", stub_blocked),
+                            (k22b, "_launch", stub_cpack),
+                            (k23, "_launch", stub_probe)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -625,11 +645,15 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out19 = k22a.prestep(vx, vy, vz, None, None, 0.5, 4.0, acc=2)
     out20 = k22a.prestep(vx, vy, vz, m.fluid_i, kv, 0.5, 4.0, acc=2)
     out21 = k22c.rbgs_solve_blocked(1, vx, g, m.keep_vel, 0.5, 4.0, acc=1)
+    out22 = k22b.rbgs_solve_cpack(1, vx, g, m.keep_vel, 0.5, 4.0, acc=2)
+    out23 = k22b.rbgs_solve_cpack_stream(2, vy, g, None, 0.5, 4.0, acc=2,
+                                         empty_scene=True)
+    out24 = k23.add_one(g)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
               out13, *out14, out15, out16, *out17, out18, *out19, *out20,
-              out21):
+              out21, out22, out23, out24):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -656,7 +680,15 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
         assert torch.equal(got, want)
     assert torch.equal(out21, k22c.rbgs_solve_blocked_plain(
         1, vx, g, m.keep_vel, 0.5, 4.0, 1))
-    assert LAUNCHES == {k: 1 for k in LAUNCHES}
+    assert torch.equal(out22, k22b.rbgs_solve_cpack_plain(
+        1, vx, g, m.keep_vel, 0.5, 4.0, 2))
+    assert torch.equal(out23, k22b.rbgs_solve_cpack_stream_plain(
+        2, vy, g, None, 0.5, 4.0, 2, empty_scene=True))
+    assert torch.equal(out24, g + 1.0)
+    # every wrapper once; the colour-packed solves' sweep 1 adds one K1
+    # keep solve and one blocked sweep
+    assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
+                        "rbgs_solve_blocked": 2}
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -717,6 +749,85 @@ def test_retired_kernels_raise_outside_their_gates(card, monkeypatch):
     assert set(LAUNCHES.values()) == {0}
 
 
+@pytest.mark.parametrize("empty", [False, True])
+def test_cpack_solve_counts(card, empty):
+    """The resident entry point: sweep 1 through K1 (its own counter),
+    then one count for the half-sweeps; the streamed one: sweep 1 through
+    the blocked solve, then one count per colour-packed sweep. acc 1 runs
+    sweep 1 only, acc 0 nothing."""
+    m = build_masks(add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2),
+                    device=CPU)
+    keep = None if empty else m.keep_vel
+    rng = np.random.default_rng(10)
+    f, g = (torch.tensor(rng.normal(size=PAD), dtype=torch.float32)
+            for _ in range(2))
+    args = (2, f, g, keep, 0.5, 4.0)
+    k1_name = "rbgs_solve" if empty else "rbgs_solve_keep"
+    got = k22b.rbgs_solve_cpack(*args, acc=5, wall_mode="noslip",
+                                empty_scene=empty)
+    assert torch.equal(got, k1.rbgs_solve_plain(2, f, g, 0.5, 4.0, 5,
+                                                "noslip", keep))
+    assert LAUNCHES == _counts(**{k1_name: 1, "rbgs_solve_cpack": 1})
+    reset_launches()
+    got = k22b.rbgs_solve_cpack_stream(*args, acc=4, empty_scene=empty)
+    assert torch.equal(got, k22b.rbgs_solve_cpack_stream_plain(
+        *args, acc=4, empty_scene=empty))
+    assert LAUNCHES == _counts(rbgs_solve_blocked=1,
+                               rbgs_solve_cpack_stream=3)
+    reset_launches()
+    for solve in (k22b.rbgs_solve_cpack, k22b.rbgs_solve_cpack_stream):
+        solve(*args, acc=0, empty_scene=empty)
+    assert set(LAUNCHES.values()) == {0}
+    k22b.rbgs_solve_cpack(*args, acc=1, empty_scene=empty)
+    k22b.rbgs_solve_cpack_stream(*args, acc=1, empty_scene=empty)
+    assert LAUNCHES == _counts(**{k1_name: 1, "rbgs_solve_blocked": 1})
+
+
+def test_cpack_solve_refuses_on_the_card(card, monkeypatch):
+    """Odd W, bf16, a missing keep and operands the kernels do not take
+    raise on the card's branch; nothing runs a plain version in their
+    place."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's branch")
+
+    for name in ("_sweeps_plain", "rbgs_solve_plain",
+                 "rbgs_solve_blocked_plain"):
+        monkeypatch.setattr(k22b, name, refuse)
+    f = torch.zeros(PAD)
+    odd = torch.zeros((D + 2, H + 2, W + 1))
+    bf = torch.zeros(PAD, dtype=torch.bfloat16)
+    for solve in (k22b.rbgs_solve_cpack, k22b.rbgs_solve_cpack_stream):
+        with pytest.raises(ValueError, match="even interior W"):
+            solve(1, odd, odd.clone(), None, 0.5, 4.0, empty_scene=True)
+        with pytest.raises(NotImplementedError, match="A11"):
+            solve(1, bf, bf.clone(), None, 0.5, 4.0, empty_scene=True)
+        with pytest.raises(ValueError, match="keep"):
+            solve(1, f, f.clone(), None, 0.5, 4.0)
+        with pytest.raises(ValueError, match="shape"):
+            solve(1, f, f.clone(), torch.ones(INTERIOR), 0.5, 4.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            solve(1, f, torch.zeros((W + 2, H + 2, D + 2)).transpose(0, 2),
+                  None, 0.5, 4.0, empty_scene=True)
+    assert set(LAUNCHES.values()) == {0}
+
+
+def test_probe_counts_its_launches(card):
+    """add_one is one launch; the probe's eager rows run their kernels
+    through the wrappers, and none of them a plain version."""
+    x = torch.arange(8 * 128, dtype=torch.float32).reshape(8, 128)
+    assert torch.equal(k23.add_one(x), x + 1.0)
+    assert LAUNCHES == _counts(probe_add1=1)
+    reset_launches()
+    for row in exp_overhead.rows(CPU, (W, H, D), 3):
+        row.body()
+    # (a) 1 + 4 + 16; (b) 1 + 3 + 1 + 1 + 1 solves; (d) 3 solves, 1
+    # projection and one prestep
+    assert LAUNCHES == _counts(probe_add1=21, rbgs_solve=10, project_empty=1,
+                               prestep=1)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k23.add_one(x.to(torch.bfloat16))
+
+
 def test_launch_error_raises(monkeypatch):
     """A nonzero cudaGetLastError() from a C entry point is an exception."""
     class FakeLib:
@@ -747,7 +858,7 @@ def test_sources_and_sign_mask():
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
             "trilinear.cu", "rbgs_sweep.cu", "prestep.cu",
-            "common.cuh"} <= names
+            "rbgs_cpack.cu", "probe.cu", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
     assert _build.neg_mask([(-1.0, 1.0, 1.0), (1.0, -1.0, 1.0),
