@@ -106,7 +106,14 @@ final ``ok`` line):
     every probe row with the counts set to 0 just before and read just
     after; then every row eager and replayed from a CUDA graph (replay
     bitwise to eager), n = 50, in µs per iteration;
-19. ms/step of the kernel path and the plain path, timed with CUDA events.
+19. the streaming-ceiling and sweep-cost probes (B23's ``exp_hbm``,
+    ``exp_hbm2``, ``exp_sweepcost``, ``streamcost``): one call each of the
+    stream kernel and of a sweep-cost variant with the counts set to 0 just
+    before and read just after (1 and 1, nothing else); every form of the
+    stream and every variant at nsw 1 and 2 against its plain version, and
+    ``full`` against the production pass, bitwise, at a ragged 13x7x10 and
+    at 256^3; then the three probes' rows at 256^3, CUDA-graph replays;
+20. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -202,6 +209,12 @@ KERNELS = {
     # B23: the launch-overhead probe's tiny kernel
     "probe_add1": ("fluid_simulation_tpu_torch/csrc/probe.cu",
                    "tools/exp_overhead.py:53"),
+    # B23: the streaming-ceiling probes' stream (row: copy2d) and the
+    # sweep-cost variants of the streamed pass (row: full at nsw 2)
+    "hbm_stream": ("fluid_simulation_tpu_torch/csrc/hbm.cu",
+                   "tools/exp_hbm.py:76"),
+    "sweepcost_pass": ("fluid_simulation_tpu_torch/csrc/sweepcost.cu",
+                       "tools/exp_sweepcost.py:114"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -216,7 +229,9 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "prestep": 8, "prestep_masked": 9, "rbgs_solve_blocked": 9,
                 # per sweep with a keep (8 on an empty scene), as K1 keep
                 "rbgs_solve_cpack": 9, "rbgs_solve_cpack_stream": 9,
-                "probe_add1": 1}
+                "probe_add1": 1,
+                # copy2d's add; a sweep of the pass, as K1
+                "hbm_stream": 1, "sweepcost_pass": 8}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -1478,6 +1493,87 @@ class Smoke:
             r = exp_overhead.measure(row, 50)
             print(f"   {exp_overhead.format_row(r)}", flush=True)
 
+    def streamcost(self):
+        """B23's exp_hbm, exp_hbm2 and exp_sweepcost (phase 19)."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import (
+            LAUNCHES, reset_launches)
+        from fluid_simulation_tpu_torch.kernels.hbm import (
+            stream_copy, stream_copy_plain)
+        from fluid_simulation_tpu_torch.kernels.linsolve_stream import (
+            KERNEL_NSW, sweep_pass)
+        from fluid_simulation_tpu_torch.kernels.sweepcost import (
+            VARIANTS, sweep_pass_variant, sweep_pass_variant_plain)
+        from fluid_simulation_tpu_torch.tools import (
+            exp_hbm, exp_hbm2, exp_sweepcost)
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 10)
+        a, c = exp_hbm2.PASS_A, exp_hbm2.PASS_C
+        big = (256, 256, 256)
+        x, y = self.rand(rng, big), self.rand(rng, big)
+        reset_launches()
+        stream_copy(x, y, blk=16)
+        sweep_pass_variant(x, y, "full", 2, 1, a, c)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        print(f"   launches of one stream and one variant pass: {counts}",
+              flush=True)
+        want = {"hbm_stream": 1, "sweepcost_pass": 1}
+        self.check(counts == want, f"streamcost: counts {counts} != {want}")
+        for name in want:
+            self.kern[name]["launches"] = counts[name]
+
+        # the JAX tools' forms: (row name, two inputs, keywords)
+        forms = (("copy1", False, dict(blk=16)),
+                 ("copy1_blk32", False, dict(blk=32)),
+                 ("copy2d", True, dict(blk=16)),
+                 ("copy2hd", True, dict(blk=16, halo=True)),
+                 ("arithd", True, dict(blk=16, halo=True, chain=True)))
+        for (D, H, W), b, wall in (((10, 7, 13), 2, "noslip"),
+                                   (big, 1, "reference")):
+            tag = f"{W}x{H}x{D}"
+            f = self.rand(rng, (D, H, W))
+            g = self.rand(rng, (D + 2, H + 2, W + 2))[1:-1, 1:-1, 1:-1]
+            for form, two, kw in forms:
+                second = g.contiguous() if two else None
+                self.compare("hbm_stream", stream_copy(f, second, **kw),
+                             stream_copy_plain(f, second, **kw),
+                             f"{tag} {form}")
+            for nsw in KERNEL_NSW:
+                for v in VARIANTS:
+                    got = sweep_pass_variant(f, g, v, nsw, b, a, c, wall)
+                    self.compare("sweepcost_pass", got,
+                                 sweep_pass_variant_plain(f, g, v, nsw, b, a,
+                                                          c, wall),
+                                 f"{tag} {v} nsw={nsw}")
+                    if v in ("full", "noiota"):
+                        self.compare("sweepcost_pass", got,
+                                     sweep_pass(f, g, None, b, a, c, nsw,
+                                                wall),
+                                     f"{tag} {v} nsw={nsw}", ref="rbgs_pass")
+            del f, g
+        n = x.numel()
+        self.time_pair("hbm_stream", lambda: stream_copy(x, y, blk=16),
+                       lambda: stream_copy_plain(x, y, blk=16), 20,
+                       "256^3 copy2d")
+        self.bound("hbm_stream", (x, y, x), OPS_PER_CELL["hbm_stream"] * n)
+        # one PyTorch call computes copy2d: torch.add
+        self.kern["hbm_stream"]["library_ms"] = self.event_ms(
+            lambda: torch.add(x, y), 20)
+        self.time_pair("sweepcost_pass",
+                       lambda: sweep_pass_variant(x, y, "full", 2, 1, a, c),
+                       lambda: sweep_pass_variant_plain(x, y, "full", 2, 1,
+                                                        a, c), 10,
+                       "256^3 full nsw=2")
+        self.bound("sweepcost_pass", (x, y, x),
+                   2 * OPS_PER_CELL["sweepcost_pass"] * n)
+        del x, y
+        torch.cuda.empty_cache()
+        for tool in (exp_hbm, exp_hbm2, exp_sweepcost):
+            tool.main(["--n", "10"])
+            torch.cuda.empty_cache()
+
     def stitched(self, sw):
         """A sharded run's state stitched to the single-card layout, read
         as ``check_state``, ``check_scene`` and ``check_parity`` read a
@@ -1633,6 +1729,8 @@ PHASES = [
     ("cpack", "kernels vs plain: the colour-packed solve", "cpack"),
     ("overhead", "launch overhead: eager against CUDA-graph replay",
      "overhead"),
+    ("streamcost", "streaming ceilings and the pass kernel's cost split",
+     "streamcost"),
     ("times", "times", "times"),
 ]
 

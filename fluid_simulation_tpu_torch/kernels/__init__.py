@@ -47,6 +47,12 @@ show which kernels carried it:
   (sweep 1 counts under ``rbgs_solve_blocked``; no route)
 - ``probe_add1``             (kernels/probe.py)           one per ``o = x + 1``
   of the launch-overhead probe (``tools/exp_overhead.py``; no route)
+- ``hbm_stream``             (kernels/hbm.py)             one per z-blocked
+  stream of the streaming-ceiling probes (``tools/exp_hbm.py``,
+  ``tools/exp_hbm2.py``; no route)
+- ``sweepcost_pass``         (kernels/sweepcost.py)       one per pass of a
+  sweep-cost variant of the streamed pass kernel
+  (``tools/exp_sweepcost.py``; no route)
 
 These counters are the package's only global state.
 """
@@ -61,7 +67,7 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "rbgs_sweep_packed": 0, "rbgs_sweep": 0, "prestep": 0,
             "prestep_masked": 0, "rbgs_solve_blocked": 0,
             "rbgs_solve_cpack": 0, "rbgs_solve_cpack_stream": 0,
-            "probe_add1": 0}
+            "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0}
 
 
 def reset_launches() -> None:

@@ -80,6 +80,9 @@ SIGNATURES = {
     "fst_cpack_red": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_cpack_black": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_probe_add1": (_P, _P, _I, _P),
+    "fst_hbm_stream": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "fst_sweepcost_pass": (_P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _I,
+                           _I, _P),
 }
 
 

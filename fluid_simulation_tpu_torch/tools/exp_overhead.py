@@ -39,8 +39,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import subprocess
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, List
 
@@ -53,6 +51,8 @@ from fluid_simulation_tpu_torch.kernels.prestep import prestep
 from fluid_simulation_tpu_torch.kernels.probe import add_one
 from fluid_simulation_tpu_torch.kernels.project import project_empty
 from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
+from fluid_simulation_tpu_torch.tools._timing import (
+    capture, clock_line, event_timer, host_timer, slope)
 
 # exp_overhead.py:80-86: the solve's coefficients
 SOLVE_A, SOLVE_C = 1e-4, 1.0006
@@ -111,64 +111,6 @@ def rows(device="cuda", shape=(128, 64, 64), acc: int = 15) -> List[Row]:
     return out
 
 
-def host_timer(fn) -> float:
-    """Seconds of ``fn()`` on the host clock."""
-    t0 = time.perf_counter()
-    fn()
-    return time.perf_counter() - t0
-
-
-def event_timer(fn) -> float:
-    """Seconds of ``fn()`` on the current stream, between two CUDA events
-    recorded on an idle card."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3
-
-
-def slope(body, n: int = 100, timer=event_timer) -> float:
-    """Marginal seconds per iteration of ``body``: the best of 3 of
-    ``(t(3n) - t(n)) / 2n``, after one warm-up of each length
-    (exp_overhead.py:27-46)."""
-    def run(k):
-        return lambda: [body() for _ in range(k)]
-
-    timer(run(n))
-    timer(run(3 * n))
-    best = float("inf")
-    for _ in range(3):
-        t1 = timer(run(n))
-        t3 = timer(run(3 * n))
-        best = min(best, (t3 - t1) / (2 * n))
-    return best
-
-
-def capture(body, device="cuda"):
-    """``(graph, outputs)``: ``body`` captured once with
-    ``torch.cuda.graph`` after three warm-up calls on a side stream. The
-    outputs are the graph's own tensors, rewritten by every replay. Raises
-    on the CPU, and wherever a launch cannot be captured."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise RuntimeError(f"exp_overhead: a CUDA graph needs the card, got "
-                           f"{device}; the CPU runs the eager arm only")
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            body()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = body()
-    return graph, out
-
-
 def _tensors(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
@@ -218,18 +160,7 @@ def main(argv=None) -> int:
                     help="sweeps per solve")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("exp_overhead: no CUDA device (pass --device "
-                             "cpu for the eager arm on the host clock)")
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-        print(f"{card}; CUDA events, n = {args.n}", flush=True)
-    else:
-        print(f"host CPU, host clock (no device metric), n = {args.n}",
-              flush=True)
+    print(f"{clock_line('exp_overhead', device)}, n = {args.n}", flush=True)
     for row in rows(device, tuple(args.shape), args.acc):
         print(format_row(measure(row, args.n, device)), flush=True)
     return 0

@@ -23,10 +23,10 @@ import torch.nn.functional as F
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
-    linsolve as k1, linsolve_blocked as k22c, linsolve_cpack as k22b,
-    linsolve_stream as k11, linsolve_sweep as k15, prestep as k22a,
-    probe as k23, project as k2, project_stream as k14, reset_launches,
-    vorticity as k10)
+    hbm as k23h, linsolve as k1, linsolve_blocked as k22c,
+    linsolve_cpack as k22b, linsolve_stream as k11, linsolve_sweep as k15,
+    prestep as k22a, probe as k23, project as k2, project_stream as k14,
+    reset_launches, sweepcost as k23s, vorticity as k10)
 from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
@@ -34,7 +34,8 @@ from fluid_simulation_tpu_torch.ops.advect import trilinear_gather
 from fluid_simulation_tpu_torch.scene.masks import build_masks
 from fluid_simulation_tpu_torch.scene.primitives import (
     add_sphere, empty_obstacles)
-from fluid_simulation_tpu_torch.tools import exp_overhead
+from fluid_simulation_tpu_torch.tools import (
+    exp_hbm, exp_hbm2, exp_overhead, exp_sweepcost)
 
 torch.set_num_threads(1)
 
@@ -262,6 +263,26 @@ def stub_probe(x, out):
     out.copy_(k23.add_one_plain(x))
 
 
+def stub_hbm(a, b, out, blk, hb, halo, chain):
+    for t in (a, out) + (() if b is None else (b,)):
+        _operand(t, a.shape)
+    _distinct(a, out)
+    if b is not None:
+        _distinct(b, out)
+    out.copy_(k23h.stream_copy_plain(a, b, blk=blk, halo=halo, chain=chain,
+                                     hb=hb))
+
+
+def stub_sweepcost(fin, rhs_i, out, variant, nsw, b, a, c, wall_mode):
+    for t in (fin, out):
+        _operand(t, fin.shape)
+    _mask(rhs_i, fin.shape)
+    assert variant in k23s.VARIANTS and nsw in k11.KERNEL_NSW
+    _distinct(fin, out, rhs_i)
+    out.copy_(k23s.sweep_pass_variant_plain(fin, rhs_i, variant, nsw, b, a,
+                                            c, wall_mode))
+
+
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
@@ -283,7 +304,9 @@ def card(monkeypatch):
                             (k22a, "_launch", stub_prestep),
                             (k22c, "_launch", stub_blocked),
                             (k22b, "_launch", stub_cpack),
-                            (k23, "_launch", stub_probe)):
+                            (k23, "_launch", stub_probe),
+                            (k23h, "_launch", stub_hbm),
+                            (k23s, "_launch", stub_sweepcost)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -649,11 +672,15 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out23 = k22b.rbgs_solve_cpack_stream(2, vy, g, None, 0.5, 4.0, acc=2,
                                          empty_scene=True)
     out24 = k23.add_one(g)
+    out25 = k23h.stream_copy(vx, g, blk=4, halo=True, chain=True, hb=2)
+    out26 = k23s.sweep_pass_variant(vx[1:-1, 1:-1, 1:-1].contiguous(),
+                                    g[1:-1, 1:-1, 1:-1], "nosel", 2, 1, 0.5,
+                                    4.0)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
               out13, *out14, out15, out16, *out17, out18, *out19, *out20,
-              out21, out22, out23, out24):
+              out21, out22, out23, out24, out25, out26):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -685,6 +712,11 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     assert torch.equal(out23, k22b.rbgs_solve_cpack_stream_plain(
         2, vy, g, None, 0.5, 4.0, 2, empty_scene=True))
     assert torch.equal(out24, g + 1.0)
+    # the probes' kernels give what their plain versions give
+    assert torch.equal(out25, k23h.stream_copy_plain(vx, g, blk=4, halo=True,
+                                                     chain=True, hb=2))
+    assert torch.equal(out26, k23s.sweep_pass_variant_plain(
+        vx[1:-1, 1:-1, 1:-1], g[1:-1, 1:-1, 1:-1], "nosel", 2, 1, 0.5, 4.0))
     # every wrapper once; the colour-packed solves' sweep 1 adds one K1
     # keep solve and one blocked sweep
     assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
@@ -828,6 +860,67 @@ def test_probe_counts_its_launches(card):
         k23.add_one(x.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("kw", [dict(blk=16), dict(blk=32),
+                                dict(blk=16, two=True),
+                                dict(blk=8, two=True, halo=True),
+                                dict(blk=16, two=True, halo=True,
+                                     chain=True)])
+def test_stream_copy_is_one_launch(card, kw):
+    """Every form of the stream is one launch of its own counter, and the
+    wrapper raises on what the kernel does not take."""
+    kw = dict(kw)
+    x = torch.arange(12 * 4 * 8, dtype=torch.float32).reshape(12, 4, 8)
+    b = x.flip(0).contiguous() if kw.pop("two", False) else None
+    assert torch.equal(k23h.stream_copy(x, b, **kw),
+                       k23h.stream_copy_plain(x, b, **kw))
+    assert LAUNCHES == _counts(hbm_stream=1)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k23h.stream_copy(x.to(torch.bfloat16), None if b is None
+                         else b.to(torch.bfloat16), **kw)
+    with pytest.raises(ValueError, match="shape"):
+        k23h.stream_copy(x[0], None if b is None else b[0], **kw)
+    assert LAUNCHES == _counts(hbm_stream=1)
+
+
+@pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("variant", list(k23s.VARIANTS))
+def test_sweepcost_pass_is_one_launch(card, variant, nsw):
+    rng = np.random.default_rng(5)
+    f, g = (torch.tensor(rng.normal(size=s), dtype=torch.float32)
+            for s in (INTERIOR, PAD))
+    rhs_i = g[1:-1, 1:-1, 1:-1]
+    assert torch.equal(
+        k23s.sweep_pass_variant(f, rhs_i, variant, nsw, 2, 0.5, 4.0,
+                                "noslip"),
+        k23s.sweep_pass_variant_plain(f, rhs_i, variant, nsw, 2, 0.5, 4.0,
+                                      "noslip"))
+    assert LAUNCHES == _counts(sweepcost_pass=1)
+    with pytest.raises(ValueError, match="nsw"):
+        k23s.sweep_pass_variant(f, rhs_i, variant, 3, 2, 0.5, 4.0)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k23s.sweep_pass_variant(f.to(torch.bfloat16), rhs_i, variant, nsw,
+                                2, 0.5, 4.0)
+    assert LAUNCHES == _counts(sweepcost_pass=1)
+
+
+def test_stream_probes_count_their_launches(card):
+    """One call of every probe row: the streams and the variants through
+    their wrappers, the production pass (prod1, rbgs_pass) uncounted, as
+    ``sweep_pass`` is, and torch's own xla2 no kernel of the port."""
+    for tool, want in ((exp_hbm, _counts(hbm_stream=5)),
+                       (exp_hbm2, _counts(hbm_stream=3))):
+        reset_launches()
+        for row in tool.rows(CPU, (W, H, 2 * D)):
+            row.step(row.x0)
+        assert LAUNCHES == want, tool.__name__
+    reset_launches()
+    c0, variants, copy2hd = exp_sweepcost.rows(CPU, (W, H, 2 * D))
+    for _, _, kernel, _ in variants:
+        kernel(c0)
+    copy2hd.step(c0)
+    assert LAUNCHES == _counts(hbm_stream=1, sweepcost_pass=12)
+
+
 def test_launch_error_raises(monkeypatch):
     """A nonzero cudaGetLastError() from a C entry point is an exception."""
     class FakeLib:
@@ -858,7 +951,8 @@ def test_sources_and_sign_mask():
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
             "trilinear.cu", "rbgs_sweep.cu", "prestep.cu",
-            "rbgs_cpack.cu", "probe.cu", "common.cuh"} <= names
+            "rbgs_cpack.cu", "probe.cu", "hbm.cu", "sweepcost.cu",
+            "rbgs_tile.cuh", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
     assert _build.neg_mask([(-1.0, 1.0, 1.0), (1.0, -1.0, 1.0),
