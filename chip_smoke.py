@@ -113,7 +113,19 @@ final ``ok`` line):
     stream and every variant at nsw 1 and 2 against its plain version, and
     ``full`` against the production pass, bitwise, at a ragged 13x7x10 and
     at 256^3; then the three probes' rows at 256^3, CUDA-graph replays;
-20. ms/step of the kernel path and the plain path, timed with CUDA events.
+20. the DMA-issue, transpose and tensor-core probes (B23's ``exp_dma``,
+    ``exp_transpose``, ``exp_solve_mxu``, ``probes_last``): one call each of
+    the stream, the transpose, the strided copy, K3's single pass and the
+    tensor-core solve with the counts set to 0 just before and read just
+    after (1 each, nothing else); every form of the stream (copy2 and
+    copy2h with both loaders, manual2) in f32 and bf16 at blk 8 and 16
+    against its plain version, bitwise, at 48x19x200, a ragged 40x7x13
+    (ldg) and 256^3; the transposes at every shape of the JAX probes and
+    of the boundary rows, the y pass by transposes against K3's direct y
+    pass; the solve at 128x64x64 and an odd 13x7x5 against its plain
+    version and K1 unpacked; their times and bounds; then the three probes
+    at 256^3 (dma, boundary), their own shapes and 128x64x64 (mxu);
+21. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -215,6 +227,21 @@ KERNELS = {
                    "tools/exp_hbm.py:76"),
     "sweepcost_pass": ("fluid_simulation_tpu_torch/csrc/sweepcost.cu",
                        "tools/exp_sweepcost.py:114"),
+    # B23: the DMA-issue probe's stream (row: copy2[tma] at 256^3), the
+    # transpose probe's two kernels (rows: the boundary stack's transpose,
+    # swap01), K3's single pass (the boundary rows reach lane_lerp_stack;
+    # row: the y pass on the pre-transposed stack) and the tensor-core
+    # solve (row: 128x64x64, acc 15)
+    "dma_stream": ("fluid_simulation_tpu_torch/csrc/dma.cu",
+                   "tools/exp_dma.py:99"),
+    "transpose": ("fluid_simulation_tpu_torch/csrc/transpose.cu",
+                  "tools/exp_transpose.py:62"),
+    "strided_copy": ("fluid_simulation_tpu_torch/csrc/transpose.cu",
+                     "tools/exp_transpose.py:140"),
+    "lerp_pass": ("fluid_simulation_tpu_torch/csrc/advect_split.cu",
+                  "fluid_simulation_tpu/kernels/advect_pallas.py:190"),
+    "rbgs_solve_mxu": ("fluid_simulation_tpu_torch/csrc/rbgs_mxu.cu",
+                       "tools/exp_solve_mxu.py:92"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -231,7 +258,11 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "rbgs_solve_cpack": 9, "rbgs_solve_cpack_stream": 9,
                 "probe_add1": 1,
                 # copy2d's add; a sweep of the pass, as K1
-                "hbm_stream": 1, "sweepcost_pass": 8}
+                "hbm_stream": 1, "sweepcost_pass": 8,
+                # copy2's add; data movement; a pass's coordinate (6) and
+                # lerp of 3 fields (9) per output cell; a sweep, as K1
+                "dma_stream": 1, "transpose": 0, "strided_copy": 1,
+                "lerp_pass": 15, "rbgs_solve_mxu": 8}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -1574,6 +1605,177 @@ class Smoke:
             tool.main(["--n", "10"])
             torch.cuda.empty_cache()
 
+    def probes_last(self):
+        """B23's exp_dma, exp_transpose and exp_solve_mxu (phase 20)."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import (
+            LAUNCHES, reset_launches)
+        from fluid_simulation_tpu_torch.kernels.advect_split import lerp_pass
+        from fluid_simulation_tpu_torch.kernels.dma import (
+            DTYPES, FORMS, check_form, dma_stream, dma_stream_plain, loaders)
+        from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
+        from fluid_simulation_tpu_torch.kernels.linsolve_mxu import (
+            A, C, band_flops, rbgs_solve_mxu, rbgs_solve_mxu_plain)
+        from fluid_simulation_tpu_torch.kernels.transpose import (
+            strided_copy, strided_copy_plain, transpose2d, transpose2d_plain)
+        from fluid_simulation_tpu_torch.tools import (
+            exp_dma, exp_solve_mxu, exp_transpose)
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 11)
+        big = (256, 256, 256)
+        x, y = self.rand(rng, big), self.rand(rng, big)
+        stack, vx, dtW = exp_transpose.boundary_case(big, "cuda")
+        f, g = exp_solve_mxu.inputs((128, 64, 64), "cuda")
+        reset_launches()
+        dma_stream(x, y, form="copy2", blk=16, loader="tma")
+        transpose2d(vx)
+        strided_copy(vx.transpose(0, 1))
+        lerp_pass(stack, vx, 2, dtW, (0, 0, 1))
+        rbgs_solve_mxu(f, g, A, C, 15)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        want = {k: 1 for k in ("dma_stream", "transpose", "strided_copy",
+                               "lerp_pass", "rbgs_solve_mxu")}
+        print(f"   launches of one call of each: {counts}", flush=True)
+        self.check(counts == want, f"probes_last: counts {counts} != {want}")
+        for name in want:
+            self.kern[name]["launches"] = counts[name]
+
+        # the stream: every form, both loaders, both dtypes, both blk
+        for D, H, W in ((48, 19, 200), (40, 7, 13), big):
+            tag = f"{W}x{H}x{D}"
+            a32, b32 = ((x, y) if (D, H, W) == big else
+                        (self.rand(rng, (D, H, W)), self.rand(rng, (D, H, W))))
+            for dtype in DTYPES:
+                a, b = a32.to(dtype), b32.to(dtype)
+                dt = "f32" if dtype == torch.float32 else "bf16"
+                for blk in (8, 16):
+                    for form in FORMS:
+                        for loader in loaders(form):
+                            kw = dict(form=form, blk=blk, loader=loader)
+                            try:
+                                check_form(a, **kw)
+                            except ValueError:
+                                continue
+                            self.compare("dma_stream", dma_stream(a, b, **kw),
+                                         dma_stream_plain(a, b, **kw),
+                                         f"{tag} {dt} blk={blk} "
+                                         f"{form}[{loader}]")
+                del a, b
+        n = x.numel()
+        self.time_pair("dma_stream",
+                       lambda: dma_stream(x, y, form="copy2", blk=16),
+                       lambda: dma_stream_plain(x, y, form="copy2", blk=16),
+                       20, "256^3 copy2[tma] f32")
+        self.bound("dma_stream", (x, y, x), OPS_PER_CELL["dma_stream"] * n)
+        # one PyTorch call computes copy2: torch.add
+        self.kern["dma_stream"]["library_ms"] = self.event_ms(
+            lambda: torch.add(x, y), 20)
+        del x, y
+
+        # the transposes at every shape of the JAX probes
+        for shape in exp_transpose.PROBE_SHAPES:
+            a = self.rand(rng, shape)
+            self.compare("transpose", transpose2d(a), transpose2d_plain(a),
+                         f"probe {shape}")
+            self.compare("transpose", transpose2d(transpose2d(a) + 1.0),
+                         transpose2d_plain(transpose2d_plain(a) + 1.0),
+                         f"probe {shape} round trip")
+        plains = {nm: fn for nm, fn, _ in exp_transpose.probe3_forms(False)}
+        for shape in exp_transpose.PROBE3_SHAPES:
+            a = self.rand(rng, shape)
+            for nm, fn, _ in exp_transpose.probe3_forms(True):
+                name = "transpose" if nm == "major_slice_T" else \
+                    "strided_copy"
+                self.compare(name, fn(a), plains[nm](a), f"{nm} {shape}")
+        a = self.rand(rng, (258, 16, 128))
+        self.time_pair("strided_copy",
+                       lambda: strided_copy(a.transpose(0, 1)),
+                       lambda: strided_copy_plain(a.transpose(0, 1)), 50,
+                       "swap01 (258, 16, 128)")
+        self.bound("strided_copy", (a, a), 0)
+        self.kern["strided_copy"]["library_ms"] = self.event_ms(
+            lambda: a.transpose(0, 1).contiguous(), 50)
+
+        # the boundary rows: each pass against its plain version, the y
+        # pass by transposes against K3's direct y pass
+        kp, pp = exp_transpose.passes(True), exp_transpose.passes(False)
+        for shape in ((13, 7, 5), big):
+            W, H, D = shape
+            tag = f"{W}x{H}x{D}"
+            st, v, dtW = ((stack, vx, dtW) if shape == big else
+                          exp_transpose.boundary_case(shape, "cuda"))
+            A3 = kp[0](st, v, dtW)
+            self.compare("lerp_pass", A3, pp[0](st, v, dtW), f"{tag} xpass")
+            Bn, D2, H2, Wd = A3.shape
+            flat = A3.reshape(Bn * D2, H2, Wd)
+            At = transpose2d(flat)
+            self.compare("transpose", At, transpose2d_plain(flat),
+                         f"{tag} stack (3*D2, H2, W)")
+            At = At.reshape(Bn, D2, Wd, H2)
+            vT = transpose2d(v)
+            self.compare("transpose", vT, transpose2d_plain(v),
+                         f"{tag} velocity")
+            self.compare("lerp_pass", kp[2](At, vT, dtW), pp[2](At, vT, dtW),
+                         f"{tag} ypass_alone")
+            direct = kp[3](A3, v, dtW)
+            self.compare("lerp_pass", direct, pp[3](A3, v, dtW),
+                         f"{tag} ypass_direct")
+            self.compare("lerp_pass", kp[1](A3, v, dtW), direct,
+                         f"{tag} ypass_T", ref="K3 y pass")
+            if shape == big:
+                self.time_pair("transpose", lambda: transpose2d(flat),
+                               lambda: transpose2d_plain(flat), 10,
+                               "256^3 stack (774, 258, 256)")
+                self.bound("transpose", (flat, flat), 0)
+                self.kern["transpose"]["library_ms"] = self.event_ms(
+                    lambda: flat.permute(0, 2, 1).contiguous(), 10)
+                self.time_pair("lerp_pass", lambda: kp[2](At, vT, dtW),
+                               lambda: pp[2](At, vT, dtW), 10,
+                               "256^3 ypass_alone")
+                out = kp[2](At, vT, dtW)
+                self.bound("lerp_pass", (At, vT, out),
+                           OPS_PER_CELL["lerp_pass"] * out[0].numel())
+                del out
+            del A3, flat, At, vT, direct
+        del stack, vx
+        torch.cuda.empty_cache()
+
+        # the tensor-core solve against its plain version and K1 unpacked
+        for shape, acc in (((128, 64, 64), 15), ((13, 7, 5), 4)):
+            W, H, D = shape
+            tag = f"{W}x{H}x{D} acc={acc}"
+            fs, gs = ((f, g) if shape == (128, 64, 64) else
+                      exp_solve_mxu.inputs(shape, "cuda"))
+            got = rbgs_solve_mxu(fs, gs, A, C, acc)
+            self.compare("rbgs_solve_mxu", got,
+                         rbgs_solve_mxu_plain(fs, gs, A, C, acc), tag)
+            self.compare("rbgs_solve_mxu", got,
+                         rbgs_solve(0, fs, gs, A, C, acc, packed=False), tag,
+                         ref="K1 unpacked")
+        self.time_pair("rbgs_solve_mxu",
+                       lambda: rbgs_solve_mxu(f, g, A, C, 15),
+                       lambda: rbgs_solve_mxu_plain(f, g, A, C, 15), 20)
+        k1 = self.event_ms(lambda: rbgs_solve(0, f, g, A, C, 15,
+                                              packed=False), 20)
+        print(f"   K1 unpacked 128x64x64 acc=15: {k1:.4f} ms per call",
+              flush=True)
+        n = 128 * 64 * 64
+        self.bound("rbgs_solve_mxu", (f, g[1:-1, 1:-1, 1:-1], f),
+                   15 * OPS_PER_CELL["rbgs_solve_mxu"] * n)
+        band, dense = band_flops(f.shape, 15)
+        print(f"   rbgs_solve_mxu tensor-core flops a solve: band {band:.4g}"
+              f", dense {dense:.4g}", flush=True)
+        del f, g
+
+        exp_dma.main(["--n", "10"])
+        torch.cuda.empty_cache()
+        for mode in ("probe", "probe3", "boundary"):
+            exp_transpose.main([mode, "--n", "10"])
+            torch.cuda.empty_cache()
+        exp_solve_mxu.main([])
+
     def stitched(self, sw):
         """A sharded run's state stitched to the single-card layout, read
         as ``check_state``, ``check_scene`` and ``check_parity`` read a
@@ -1731,6 +1933,8 @@ PHASES = [
      "overhead"),
     ("streamcost", "streaming ceilings and the pass kernel's cost split",
      "streamcost"),
+    ("probes_last", "DMA-issue, transpose and tensor-core probes",
+     "probes_last"),
     ("times", "times", "times"),
 ]
 

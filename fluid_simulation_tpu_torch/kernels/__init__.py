@@ -53,6 +53,19 @@ show which kernels carried it:
 - ``sweepcost_pass``         (kernels/sweepcost.py)       one per pass of a
   sweep-cost variant of the streamed pass kernel
   (``tools/exp_sweepcost.py``; no route)
+- ``dma_stream``             (kernels/dma.py)             one per z-blocked
+  stream of the DMA-issue probe, either loader (``tools/exp_dma.py``; no
+  route)
+- ``transpose``              (kernels/transpose.py)       one per batched
+  shared-memory transpose (``tools/exp_transpose.py``; no route)
+- ``strided_copy``           (kernels/transpose.py)       one per strided
+  copy with a scale (``tools/exp_transpose.py``; no route)
+- ``lerp_pass``              (kernels/advect_split.py)    one per single
+  pass of K3's lerp kernel (``tools/exp_transpose.py``'s boundary rows; no
+  route)
+- ``rbgs_solve_mxu``         (kernels/linsolve_mxu.py)    one per empty
+  b = 0 solve with the x pair on the tensor cores
+  (``tools/exp_solve_mxu.py``; no route)
 
 These counters are the package's only global state.
 """
@@ -67,7 +80,9 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "rbgs_sweep_packed": 0, "rbgs_sweep": 0, "prestep": 0,
             "prestep_masked": 0, "rbgs_solve_blocked": 0,
             "rbgs_solve_cpack": 0, "rbgs_solve_cpack_stream": 0,
-            "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0}
+            "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0,
+            "dma_stream": 0, "transpose": 0, "strided_copy": 0,
+            "lerp_pass": 0, "rbgs_solve_mxu": 0}
 
 
 def reset_launches() -> None:

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: each launches on the given stream and returns
 # cudaGetLastError() as an int
 SIGNATURES = {
@@ -83,6 +84,10 @@ SIGNATURES = {
     "fst_hbm_stream": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "fst_sweepcost_pass": (_P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _I,
                            _I, _P),
+    "fst_dma_stream": (_P, _P, _P) + (_I,) * 10 + (_P,),
+    "fst_transpose": (_P, _P, _I, _I, _I, _L, _L, _L, _P),
+    "fst_strided_copy": (_P, _P, _I, _I, _I, _L, _L, _L, _F, _P),
+    "fst_rbgs_half_mxu": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
 }
 
 
@@ -176,18 +181,20 @@ def on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def check_operands(name: str, tensors, shapes=None) -> None:
-    """Raise unless every operand is a contiguous float32 tensor on the card
-    (one device), with the expected shape where ``shapes`` gives one."""
+def check_operands(name: str, tensors, shapes=None,
+                   dtypes=(torch.float32,)) -> None:
+    """Raise unless every operand is a contiguous tensor on the card (one
+    device) of one of ``dtypes`` (float32 unless the kernel takes more),
+    with the expected shape where ``shapes`` gives one."""
     dev = tensors[0].device
     for i, t in enumerate(tensors):
         if not on_card(t) or t.device != dev:
             raise ValueError(f"{name}: operand {i} on {t.device}, expected "
                              f"the card ({dev})")
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes:
             raise NotImplementedError(
                 f"{name}: {t.dtype} is not ported to the card yet (ROADMAP "
-                f"A11); only float32 kernels exist")
+                f"A11); this kernel takes {', '.join(map(str, dtypes))}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand {i} is not contiguous")
         if shapes is not None and shapes[i] is not None \

@@ -19,6 +19,9 @@ pass kernel ``_lane_pass`` (ROADMAP B18) computes the backtrace
 ``clip(i - dt*N*v)`` inside the pass. The card's pass kernel already does
 that for every pass, so the two TPU entry points share one Hopper kernel;
 each wrapper counts its own launches.
+
+``lerp_pass`` runs one pass of the same kernel on any stack and axis (the
+transpose probe's boundary rows, ``tools/exp_transpose.py``; no route).
 """
 
 from __future__ import annotations
@@ -29,11 +32,15 @@ import torch
 from fluid_simulation_tpu_torch.kernels import LAUNCHES, _build
 
 
+def _upper(n: int) -> float:
+    """The backtrace's upper clamp N + 0.5, rounded to f32."""
+    return float(np.float32(n) + np.float32(0.5))
+
+
 def _axis_constants(dt: float, n: int):
     """(dt*N rounded to f32, upper clamp N+0.5) as the JAX package rounds
     them (``np.float32(dt) * np.float32(N)``)."""
-    return (float(np.float32(dt) * np.float32(n)),
-            float(np.float32(n) + np.float32(0.5)))
+    return float(np.float32(dt) * np.float32(n)), _upper(n)
 
 
 def advect_split_plain(prev, vx, vy, vz, dt: float):
@@ -41,26 +48,11 @@ def advect_split_plain(prev, vx, vy, vz, dt: float):
     squeeze = prev.ndim == 3
     if squeeze:
         prev = prev[None]
-    dtype, dev = prev.dtype, prev.device
     _, D2, H2, W2 = prev.shape
     D, H, W = D2 - 2, H2 - 2, W2 - 2
-
-    def coords(n, shape, v):
-        dtN, hi = _axis_constants(dt, n)
-        i = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
-        return (i.reshape(shape) - dtN * v.to(torch.float32)).clamp(0.5, hi)
-
-    def lerp(arr, c, axis):
-        i0 = torch.floor(c).to(torch.int64)
-        s = c - i0.to(torch.float32)
-        i0 = i0.unsqueeze(0).expand(arr.shape[0], *i0.shape)
-        a = torch.gather(arr, axis, i0)
-        b = torch.gather(arr, axis, i0 + 1)
-        return (a * (1.0 - s) + b * s).to(dtype)
-
-    A = lerp(prev, coords(W, (1, 1, W), vx[:, :, 1:-1]), 3)
-    B = lerp(A, coords(H, (1, H, 1), vy[:, 1:-1, 1:-1]), 2)
-    out = lerp(B, coords(D, (D, 1, 1), vz[1:-1, 1:-1, 1:-1]), 1)
+    A = lerp_pass_plain(prev, vx, 2, _axis_constants(dt, W)[0], (0, 0, 1))
+    B = lerp_pass_plain(A, vy, 1, _axis_constants(dt, H)[0], (0, 1, 1))
+    out = lerp_pass_plain(B, vz, 0, _axis_constants(dt, D)[0], (1, 1, 1))
     return out[0] if squeeze else out
 
 
@@ -114,3 +106,67 @@ def _launch(prev, vx, vy, vz, a, b, out, dt):
             dtN, hi = _axis_constants(dt, n)
             _build.call("fst_lerp_pass", ptr(src), ptr(vel), ptr(dst), Bn,
                         *dims, axis, g, H2, W2, *off, dtN, hi, stream)
+
+
+def lerp_pass_plain(src: torch.Tensor, vel: torch.Tensor, axis: int,
+                    dtN: float, off=(0, 0, 0)) -> torch.Tensor:
+    """One pass in plain torch: ``src`` (Bn, S0, S1, S2) gathered along
+    ``axis`` (0-2, of the last three) of length N + 2 at the backtrace
+    ``clip(i - dtN*v, 0.5, N + 0.5)``, i = 1..N, with v read from the 3-D
+    ``vel`` at the output index plus ``off``. Returns (Bn, O0, O1, O2), O
+    the source's dims with N on ``axis``."""
+    dims = _pass_dims(src, vel, axis, off)
+    n = dims[axis]
+    shape = [1, 1, 1]
+    shape[axis] = n
+    i = torch.arange(1, n + 1, dtype=torch.float32, device=src.device)
+    v = vel[off[0]:off[0] + dims[0], off[1]:off[1] + dims[1],
+            off[2]:off[2] + dims[2]]
+    c = (i.reshape(shape) - dtN * v.to(torch.float32)).clamp(0.5, _upper(n))
+    i0 = torch.floor(c).to(torch.int64)
+    s = c - i0.to(torch.float32)
+    i0 = i0.unsqueeze(0).expand(src.shape[0], *i0.shape)
+    a = torch.gather(src, axis + 1, i0)
+    b = torch.gather(src, axis + 1, i0 + 1)
+    return (a * (1.0 - s) + b * s).to(src.dtype)
+
+
+def lerp_pass(src: torch.Tensor, vel: torch.Tensor, axis: int, dtN: float,
+              off=(0, 0, 0)) -> torch.Tensor:
+    """One pass of K3's kernel (``lerp_pass_plain``'s function) as a new
+    tensor. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (one launch) or raises."""
+    dims = _pass_dims(src, vel, axis, off)
+    if not _build.on_card(src):
+        return lerp_pass_plain(src, vel, axis, dtN, off)
+    name = "lerp_pass"
+    _build.check_operands(name, (src, vel))
+    out = torch.empty((src.shape[0], *dims), dtype=src.dtype,
+                      device=src.device)
+    _launch_pass(src, vel, out, axis, dtN, off)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _launch_pass(src, vel, out, axis, dtN, off):
+    Bn, *dims = out.shape
+    with torch.cuda.device(src.device):
+        _build.call("fst_lerp_pass", _build.ptr(src), _build.ptr(vel),
+                    _build.ptr(out), Bn, *dims, axis, src.shape[axis + 1],
+                    vel.shape[1], vel.shape[2], *off, float(dtN),
+                    _upper(dims[axis]), _build.stream(out))
+
+
+def _pass_dims(src, vel, axis, off):
+    """The output dims of a pass; raises on shapes the kernel does not
+    take."""
+    if src.ndim != 4 or vel.ndim != 3 or axis not in (0, 1, 2) \
+            or src.shape[axis + 1] < 3:
+        raise ValueError(f"lerp_pass: bad source {tuple(src.shape)}, "
+                         f"velocity {tuple(vel.shape)} or axis {axis}")
+    dims = list(src.shape[1:])
+    dims[axis] -= 2
+    if any(o < 0 or o + d > v for o, d, v in zip(off, dims, vel.shape)):
+        raise ValueError(f"lerp_pass: velocity {tuple(vel.shape)} does not "
+                         f"cover the output {tuple(dims)} at offset {off}")
+    return dims

@@ -23,10 +23,11 @@ import torch.nn.functional as F
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
-    hbm as k23h, linsolve as k1, linsolve_blocked as k22c,
-    linsolve_cpack as k22b, linsolve_stream as k11, linsolve_sweep as k15,
-    prestep as k22a, probe as k23, project as k2, project_stream as k14,
-    reset_launches, sweepcost as k23s, vorticity as k10)
+    dma as k23d, hbm as k23h, linsolve as k1, linsolve_blocked as k22c,
+    linsolve_cpack as k22b, linsolve_mxu as k23m, linsolve_stream as k11,
+    linsolve_sweep as k15, prestep as k22a, probe as k23, project as k2,
+    project_stream as k14, reset_launches, sweepcost as k23s,
+    transpose as k23t, vorticity as k10)
 from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
@@ -283,6 +284,42 @@ def stub_sweepcost(fin, rhs_i, out, variant, nsw, b, a, c, wall_mode):
                                             c, wall_mode))
 
 
+def stub_dma(a, b, out, form, blk, loader, hb):
+    for t in (a, b, out):
+        assert t.dtype in k23d.DTYPES and t.is_contiguous()
+        assert t.shape == a.shape
+    _distinct(a, b, out)
+    out.copy_(k23d.dma_stream_plain(a, b, form=form, blk=blk, loader=loader,
+                                    hb=hb))
+
+
+def stub_transpose(v, out):
+    B, R, C = v.shape
+    _operand(out, (B, C, R))
+    _distinct(v, out)
+    out.copy_(k23t.transpose2d_plain(v))
+
+
+def stub_strided_copy(v, out, scale):
+    assert v.ndim == 3 and v.numel() == out.numel()
+    _distinct(v, out)
+    out.copy_(k23t.strided_copy_plain(v, scale).reshape(out.shape))
+
+
+def stub_lerp_pass(src, vel, out, axis, dtN, off):
+    _operand(src, src.shape)
+    _operand(vel, vel.shape)
+    _distinct(src, vel, out)
+    out.copy_(k3.lerp_pass_plain(src, vel, axis, dtN, off))
+
+
+def stub_mxu(out, prev, a, c, acc):
+    _operand(out, prev.shape)
+    _operand(prev, out.shape)
+    _distinct(out, prev)
+    out.copy_(k23m.rbgs_solve_mxu_plain(out, prev, a, c, acc))
+
+
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
@@ -306,7 +343,12 @@ def card(monkeypatch):
                             (k22b, "_launch", stub_cpack),
                             (k23, "_launch", stub_probe),
                             (k23h, "_launch", stub_hbm),
-                            (k23s, "_launch", stub_sweepcost)):
+                            (k23s, "_launch", stub_sweepcost),
+                            (k23d, "_launch", stub_dma),
+                            (k23t, "_launch_transpose", stub_transpose),
+                            (k23t, "_launch_copy", stub_strided_copy),
+                            (k3, "_launch_pass", stub_lerp_pass),
+                            (k23m, "_launch", stub_mxu)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -676,11 +718,17 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out26 = k23s.sweep_pass_variant(vx[1:-1, 1:-1, 1:-1].contiguous(),
                                     g[1:-1, 1:-1, 1:-1], "nosel", 2, 1, 0.5,
                                     4.0)
+    out27 = k23d.dma_stream(vx, g, form="copy2h", blk=4, loader="ldg")
+    out28 = k23t.transpose2d(vx[:, 3, :])
+    out29 = k23t.strided_copy(vx.transpose(0, 1), 2.0)
+    out30 = k3.lerp_pass(vx[None], vy, 1, 0.4, (0, 1, 0))
+    out31 = k23m.rbgs_solve_mxu(vx, g, 0.5, 4.0, acc=2)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
               out13, *out14, out15, out16, *out17, out18, *out19, *out20,
-              out21, out22, out23, out24, out25, out26):
+              out21, out22, out23, out24, out25, out26, out27, out28, out29,
+              out30, out31):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -717,6 +765,13 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
                                                      chain=True, hb=2))
     assert torch.equal(out26, k23s.sweep_pass_variant_plain(
         vx[1:-1, 1:-1, 1:-1], g[1:-1, 1:-1, 1:-1], "nosel", 2, 1, 0.5, 4.0))
+    assert torch.equal(out27, k23d.dma_stream_plain(vx, g, form="copy2h",
+                                                    blk=4, loader="ldg"))
+    assert torch.equal(out28, vx[:, 3, :].T)
+    assert torch.equal(out29, vx.transpose(0, 1) * 2.0)
+    assert torch.equal(out30, k3.lerp_pass_plain(vx[None], vy, 1, 0.4,
+                                                 (0, 1, 0)))
+    assert torch.equal(out31, k1.rbgs_solve_plain(0, vx, g, 0.5, 4.0, 2))
     # every wrapper once; the colour-packed solves' sweep 1 adds one K1
     # keep solve and one blocked sweep
     assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
@@ -951,7 +1006,8 @@ def test_sources_and_sign_mask():
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
             "trilinear.cu", "rbgs_sweep.cu", "prestep.cu",
-            "rbgs_cpack.cu", "probe.cu", "hbm.cu", "sweepcost.cu",
+            "rbgs_cpack.cu", "probe.cu", "hbm.cu", "sweepcost.cu", "dma.cu",
+            "transpose.cu", "rbgs_mxu.cu",
             "rbgs_tile.cuh", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated
