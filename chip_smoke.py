@@ -53,7 +53,8 @@ final ``ok`` line):
     trilinear gather (K9) at 128x64x64 on random backtraces reaching 10+
     cells and on a sphere state after 20 compat steps, beside
     ``torch.nn.functional.grid_sample`` (the one PyTorch call that samples
-    trilinearly; its time and its difference, never 0); the fused
+    trilinearly; its time and its difference, never 0), and both on the
+    random backtraces as CUDA-graph replays (device time); the fused
     three-field solve (K5) empty, with keep and with no-slip walls, also
     against three K1 calls; K1 unpacked with a random keep that is 0 on
     parts of the ghost shell; the fused-backtrace split advection (K8) on
@@ -105,7 +106,9 @@ final ``ok`` line):
     tiny kernel against its plain version, bitwise; one eager iteration of
     every probe row with the counts set to 0 just before and read just
     after; then every row eager and replayed from a CUDA graph (replay
-    bitwise to eager), n = 50, in µs per iteration;
+    bitwise to eager), n = 50, in µs per iteration; then the host split
+    of one ``add_one`` and one K9 call at 128x64x64 into the parts of
+    ``_build.launch`` and its wrapper;
 19. the streaming-ceiling and sweep-cost probes (B23's ``exp_hbm``,
     ``exp_hbm2``, ``exp_sweepcost``, ``streamcost``): one call each of the
     stream kernel and of a sweep-cost variant with the counts set to 0 just
@@ -125,7 +128,18 @@ final ``ok`` line):
     pass; the solve at 128x64x64 and an odd 13x7x5 against its plain
     version and K1 unpacked; their times and bounds; then the three probes
     at 256^3 (dma, boundary), their own shapes and 128x64x64 (mxu);
-21. ms/step of the kernel path and the plain path, timed with CUDA events.
+21. the degrade variants of K3's stacked x pass (B24's ``exp_lerpcost``,
+    ``lerpcost``): one call with the counts set to 0 just before and read
+    just after (1, nothing else), on a ragged (3, 37, 200) stack with a
+    (37, 198) index plane over [-1, 200] and at 256^3 x-geometry (3 x
+    258^2 x 258, Co 256); every variant against its plain version,
+    bitwise, on the ragged stack and on a seeded random 256^3 stack with
+    the tool's plane (77.3) and a random one over [0, C-1]; K3's own x
+    pass at that geometry; ``full``'s times and bound (478.7 MB) on the
+    random stack and plane, and ``torch.nn.functional.grid_sample``
+    beside it, held to ``full`` within 1e-3; then the probe's rows at
+    256^3 (the tool's constant stack 0.5);
+22. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -242,6 +256,10 @@ KERNELS = {
                   "fluid_simulation_tpu/kernels/advect_pallas.py:190"),
     "rbgs_solve_mxu": ("fluid_simulation_tpu_torch/csrc/rbgs_mxu.cu",
                        "tools/exp_solve_mxu.py:92"),
+    # B24: the degrade variants of K3's stacked x pass (row: full at 256^3
+    # on the random index plane)
+    "lerpcost_pass": ("fluid_simulation_tpu_torch/csrc/lerpcost.cu",
+                      "tools/exp_lerpcost.py:29"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -262,7 +280,10 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 # copy2's add; data movement; a pass's coordinate (6) and
                 # lerp of 3 fields (9) per output cell; a sweep, as K1
                 "dma_stream": 1, "transpose": 0, "strided_copy": 1,
-                "lerp_pass": 15, "rbgs_solve_mxu": 8}
+                "lerp_pass": 15, "rbgs_solve_mxu": 8,
+                # the coordinate (floor, clip, fraction, 1 - s) once, and a
+                # lerp (2 products, a sum) per field, per output
+                "lerpcost_pass": 4 + 3 * 3}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -979,6 +1000,8 @@ class Smoke:
             backtrace, trilinear_gather)
         from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
         from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.tools.exp_transpose import (
+            measure_body)
         from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
 
         torch = self.torch
@@ -1026,6 +1049,12 @@ class Smoke:
         print(f"   grid_sample    128x64x64: {lib_ms:.4f} ms per call, "
               f"max|grid_sample-kernel| = {lib_err:.3g} (another "
               f"arithmetic: not a port, never on a path)", flush=True)
+        # device time: CUDA-graph replays, no host launch in the clock
+        k9_dev, lib_dev = (measure_body(f, 10, "cuda") * 1e3
+                           for f in (k9, lib))
+        print(f"   trilinear_gather random backtraces, device (graph "
+              f"replay): kernel {k9_dev:.4f} ms, grid_sample "
+              f"{lib_dev:.4f} ms per call", flush=True)
         self.bound("trilinear_gather", (prev, xb, yb, zb, k9()),
                    OPS_PER_CELL["trilinear_gather"] * n)
         self.kern["trilinear_gather"]["library_ms"] = lib_ms
@@ -1523,6 +1552,11 @@ class Smoke:
         for row in rows:
             r = exp_overhead.measure(row, 50)
             print(f"   {exp_overhead.format_row(r)}", flush=True)
+        for launch in exp_overhead.launches("cuda"):
+            split = exp_overhead.format_split(
+                launch, exp_overhead.host_split(launch))
+            for line in split.splitlines():
+                print(f"   {line}", flush=True)
 
     def streamcost(self):
         """B23's exp_hbm, exp_hbm2 and exp_sweepcost (phase 19)."""
@@ -1872,6 +1906,86 @@ class Smoke:
         self.same_state(sw.global_state(), plain.global_state(),
                         f"{label}: 1 step kernel path vs use_pallas=False")
 
+    def lerpcost(self):
+        """B24's exp_lerpcost (phase 21)."""
+        import numpy as np
+        import torch.nn.functional as F
+        from fluid_simulation_tpu_torch.kernels import (
+            LAUNCHES, reset_launches)
+        from fluid_simulation_tpu_torch.kernels.lerpcost import (
+            VARIANTS, lerpcost_pass, lerpcost_pass_plain)
+        from fluid_simulation_tpu_torch.tools import exp_lerpcost
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 12)
+
+        def one_call(arr, xb, label):
+            reset_launches()
+            lerpcost_pass(arr, xb, "full")
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in LAUNCHES.items() if v}
+            print(f"   launches of one {label} call: {counts}", flush=True)
+            want = {"lerpcost_pass": 1}
+            self.check(counts == want,
+                       f"lerpcost {label}: counts {counts} != {want}")
+            return counts["lerpcost_pass"]
+
+        arr = self.rand(rng, (3, 37, 200))
+        xb = self.rand(rng, (37, 198), -1.0, 200.0)
+        one_call(arr, xb, "(3, 37, 200)")
+        for v in VARIANTS:
+            self.compare("lerpcost_pass", lerpcost_pass(arr, xb, v),
+                         lerpcost_pass_plain(arr, xb, v),
+                         f"(3, 37, 200) {v}")
+        # 256^3 x-geometry on a random stack: every lane differs, so a
+        # wrong gather index, row, field or window offset shows
+        R, C, Co = 258 * 258, 258, 256
+        x0 = self.rand(rng, (3, R, C))
+        planes = exp_lerpcost.planes(R, C, Co, "cuda")
+        self.kern["lerpcost_pass"]["launches"] = one_call(
+            x0, planes[1][1], "256^3")
+        for label, plane in planes:
+            for v in VARIANTS:
+                self.compare("lerpcost_pass", lerpcost_pass(x0, plane, v),
+                             lerpcost_pass_plain(x0, plane, v),
+                             f"256^3 {v} xb={label}")
+        k3 = exp_lerpcost.rows("cuda")[-1]       # K3's own x pass, 256^3
+        self.compare("lerp_pass", k3.kernel(k3.x0), k3.plain(k3.x0),
+                     f"256^3 {k3.name} xb={k3.xb}")
+        del k3
+        plane = planes[1][1]
+        got = lerpcost_pass(x0, plane, "full")
+        self.time_pair("lerpcost_pass",
+                       lambda: lerpcost_pass(x0, plane, "full"),
+                       lambda: lerpcost_pass_plain(x0, plane, "full"), 10,
+                       "256^3 full, random stack and xb")
+        self.bound("lerpcost_pass", (x0, plane, got),
+                   OPS_PER_CELL["lerpcost_pass"] * plane.numel())
+        # the one PyTorch call that computes full's samples: grid_sample
+        # along x of each row (H = 1, so the row index is exact), the index
+        # mapped to [-1, 1] (align_corners: -1 is lane 0); that map rounds,
+        # so it agrees with full within a tolerance, not bitwise
+        grid = torch.stack([plane * (2.0 / (C - 1)) - 1.0,
+                            torch.zeros_like(plane)], dim=-1)[:, None]
+        inp = x0.permute(1, 0, 2)[:, :, None, :]
+        lib = lambda: F.grid_sample(  # noqa: E731
+            inp, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+        lib_err = float((lib()[:, :, 0, :].permute(1, 0, 2) - got).abs()
+                        .max())
+        self.check(lib_err <= 1e-3, f"lerpcost: grid_sample differs from "
+                   f"full by {lib_err:.3g} > 1e-3")
+        lib_ms = self.event_ms(lib, 10)
+        self.kern["lerpcost_pass"]["library_ms"] = lib_ms
+        print(f"   grid_sample    256^3 full, random stack and xb: "
+              f"{lib_ms:.4f} ms per call, max|grid_sample-kernel| = "
+              f"{lib_err:.3g} (tolerance 1e-3: the index through [-1, 1] "
+              f"rounds; never on a path)", flush=True)
+        del x0, planes, plane, got, grid, inp
+        torch.cuda.empty_cache()
+        exp_lerpcost.main(["--n", "10"])
+        torch.cuda.empty_cache()
+
     def times(self):
         from fluid_simulation_tpu_torch import WindTunnel
         from fluid_simulation_tpu_torch.utils.profiling import cells
@@ -1935,6 +2049,7 @@ PHASES = [
      "streamcost"),
     ("probes_last", "DMA-issue, transpose and tensor-core probes",
      "probes_last"),
+    ("lerpcost", "the degrade variants of K3's stacked x pass", "lerpcost"),
     ("times", "times", "times"),
 ]
 

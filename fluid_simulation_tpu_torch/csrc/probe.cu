@@ -7,6 +7,11 @@
 // 1024 elements: what it costs on the card is the launch itself, which is
 // what the probe (fluid_simulation_tpu_torch/tools/exp_overhead.py)
 // measures, eager and replayed from a CUDA graph.
+//
+// Beside it, two entry points that launch nothing, with the C signatures of
+// fst_probe_add1 and fst_trilinear_gather: the probe's host split times a
+// ctypes call through them, so that the call's own cost (ctypes' argument
+// conversion and the call) stands apart from the CUDA launch's.
 
 #include "common.cuh"
 
@@ -30,6 +35,15 @@ int fst_probe_add1(const void* x, void* o, int n, void* stream) {
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), n);
   return fst::launch_status();
+}
+
+// Nothing, with fst_probe_add1's signature.
+int fst_probe_noop(const void*, void*, int, void*) { return 0; }
+
+// Nothing, with fst_trilinear_gather's signature.
+int fst_probe_noop9(const void*, const void*, const void*, const void*, void*,
+                    int, int, int, void*) {
+  return 0;
 }
 
 }  // extern "C"

@@ -66,6 +66,9 @@ show which kernels carried it:
 - ``rbgs_solve_mxu``         (kernels/linsolve_mxu.py)    one per empty
   b = 0 solve with the x pair on the tensor cores
   (``tools/exp_solve_mxu.py``; no route)
+- ``lerpcost_pass``          (kernels/lerpcost.py)        one per degrade
+  variant of K3's stacked x pass on an index plane
+  (``tools/exp_lerpcost.py``; no route)
 
 These counters are the package's only global state.
 """
@@ -82,7 +85,7 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "rbgs_solve_cpack": 0, "rbgs_solve_cpack_stream": 0,
             "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0,
             "dma_stream": 0, "transpose": 0, "strided_copy": 0,
-            "lerp_pass": 0, "rbgs_solve_mxu": 0}
+            "lerp_pass": 0, "rbgs_solve_mxu": 0, "lerpcost_pass": 0}
 
 
 def reset_launches() -> None:

@@ -8,6 +8,11 @@ on a hash of the sources and flags, so a fresh checkout builds itself and an
 edited source rebuilds. Importing this module needs neither ``nvcc`` nor a
 card.
 
+A launch (``launch``) passes pointers as plain ints, reads the current
+stream's raw handle at each call and enters a device guard only off the
+current device: the host pays for the checks, the output's allocation, one
+ctypes call and the CUDA launch, and nothing else.
+
 ``-fmad=false`` keeps every ``a*b+c`` as two roundings, as the plain torch
 versions compute it; the sources also spell the critical expressions with
 ``__fmul_rn``/``__fadd_rn``, so each kernel matches its plain version bit
@@ -88,6 +93,11 @@ SIGNATURES = {
     "fst_transpose": (_P, _P, _I, _I, _I, _L, _L, _L, _P),
     "fst_strided_copy": (_P, _P, _I, _I, _I, _L, _L, _L, _F, _P),
     "fst_rbgs_half_mxu": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "fst_lerpcost_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # no-ops with the signatures of fst_probe_add1 and fst_trilinear_gather
+    # (tools/exp_overhead.py's host split)
+    "fst_probe_noop": (_P, _P, _I, _P),
+    "fst_probe_noop9": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -154,6 +164,11 @@ def build() -> Path:
     return lib
 
 
+# C entry point name -> its ctypes function, filled once by library(), so
+# that a launch looks its function up in one dict
+_ENTRY = {}
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call, then cached)."""
@@ -162,23 +177,57 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
+        _ENTRY[name] = fn
     lib.fst_error_string.argtypes = [ctypes.c_int]
     lib.fst_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _entry(name: str):
+    """The ctypes function of C entry point ``name`` (the library is
+    loaded, and ``_ENTRY`` filled, at the first lookup)."""
+    fn = _ENTRY.get(name)
+    if fn is None:
+        library()
+        fn = _ENTRY[name]
+    return fn
+
+
 def call(name: str, *args) -> None:
-    """Launch C entry point ``name``; raise if the launch reported an error."""
-    lib = library()
-    rc = getattr(lib, name)(*args)
+    """Call C entry point ``name`` with ``args`` as they are, on no stream
+    (a query such as ``fst_prestep_blocks``); raise if it returned an
+    error."""
+    rc = _entry(name)(*args)
     if rc != 0:
-        msg = lib.fst_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+        _raise(name, rc)
+
+
+def launch(name: str, device: int, *args) -> None:
+    """Launch C entry point ``name`` on CUDA device ``device`` (an index,
+    ``t.get_device()``) with ``args`` and that device's current stream, read
+    at this call (a CUDA graph's capture stream while one captures); raise
+    if the launch reported an error. Pointers are plain ints (``ptr``),
+    None for a null one. The device guard is entered only when ``device``
+    is not the current device."""
+    fn = _entry(name)
+    C = torch._C
+    if device == C._cuda_getDevice():
+        rc = fn(*args, C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, C._cuda_getCurrentRawStream(device))
+    if rc != 0:
+        _raise(name, rc)
+
+
+def _raise(name: str, rc: int):
+    msg = library().fst_error_string(rc).decode()
+    raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
 def on_card(t: torch.Tensor) -> bool:
     """True when ``t`` lives on a CUDA device, so its kernel must launch."""
-    return t.device.type == "cuda"
+    return t.is_cuda
 
 
 def check_operands(name: str, tensors, shapes=None,
@@ -186,11 +235,11 @@ def check_operands(name: str, tensors, shapes=None,
     """Raise unless every operand is a contiguous tensor on the card (one
     device) of one of ``dtypes`` (float32 unless the kernel takes more),
     with the expected shape where ``shapes`` gives one."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()
     for i, t in enumerate(tensors):
-        if not on_card(t) or t.device != dev:
+        if not on_card(t) or t.get_device() != dev:
             raise ValueError(f"{name}: operand {i} on {t.device}, expected "
-                             f"the card ({dev})")
+                             f"the card ({tensors[0].device})")
         if t.dtype not in dtypes:
             raise NotImplementedError(
                 f"{name}: {t.dtype} is not ported to the card yet (ROADMAP "
@@ -198,36 +247,32 @@ def check_operands(name: str, tensors, shapes=None,
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand {i} is not contiguous")
         if shapes is not None and shapes[i] is not None \
-                and tuple(t.shape) != tuple(shapes[i]):
+                and t.shape != tuple(shapes[i]):
             raise ValueError(f"{name}: operand {i} has shape "
                              f"{tuple(t.shape)}, expected {tuple(shapes[i])}")
 
 
-def mask_view(name: str, m: torch.Tensor, shape, device):
+def mask_view(name: str, m: torch.Tensor, shape, device: int):
     """``(pointer, z stride, y stride)`` of an interior-shaped (D, H, W)
-    float32 mask on the card ``device``: a contiguous interior array or an
-    interior view of a padded one (``keep[1:-1, 1:-1, 1:-1]``). Raises
-    unless its shape is ``shape`` and its x stride is 1."""
+    float32 mask on the card ``device`` (an index): a contiguous interior
+    array or an interior view of a padded one (``keep[1:-1, 1:-1, 1:-1]``).
+    Raises unless its shape is ``shape`` and its x stride is 1."""
     shape = tuple(shape)
-    if m.device != device:
-        raise ValueError(f"{name}: mask on {m.device}, expected {device}")
+    if m.get_device() != device:
+        where = f"cuda:{device}" if device >= 0 else "cpu"
+        raise ValueError(f"{name}: mask on {m.device}, expected {where}")
     if m.dtype != torch.float32:
         raise NotImplementedError(
             f"{name}: {m.dtype} mask is not ported to the card yet (ROADMAP "
             f"A11); only float32 kernels exist")
-    if tuple(m.shape) != shape or m.stride(2) != 1:
+    if m.shape != shape or m.stride(2) != 1:
         raise ValueError(f"{name}: mask of shape {tuple(m.shape)} and strides "
                          f"{m.stride()}, expected {shape} with x stride 1")
-    return ptr(m), m.stride(0), m.stride(1)
+    return m.data_ptr(), m.stride(0), m.stride(1)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+# a tensor's address as a plain int, which the c_void_p argtypes take
+ptr = torch.Tensor.data_ptr
 
 
 def neg_mask(signs_per_field) -> int:

@@ -37,7 +37,7 @@ def trilinear_gather_window(prev: torch.Tensor, xb: torch.Tensor,
     interior = tuple(n - 2 for n in prev.shape)
     _build.check_operands("trilinear_gather", (prev, xb, yb, zb),
                           (None, interior, interior, interior))
-    out = torch.empty(interior, dtype=prev.dtype, device=prev.device)
+    out = torch.empty_like(xb)
     _launch(prev, xb, yb, zb, out)
     LAUNCHES["trilinear_gather"] += 1
     return out
@@ -46,6 +46,5 @@ def trilinear_gather_window(prev: torch.Tensor, xb: torch.Tensor,
 def _launch(prev, xb, yb, zb, out):
     D, H, W = out.shape
     ptr = _build.ptr
-    with torch.cuda.device(prev.device):
-        _build.call("fst_trilinear_gather", ptr(prev), ptr(xb), ptr(yb),
-                    ptr(zb), ptr(out), D, H, W, _build.stream(prev))
+    _build.launch("fst_trilinear_gather", prev.get_device(), ptr(prev),
+                  ptr(xb), ptr(yb), ptr(zb), ptr(out), D, H, W)

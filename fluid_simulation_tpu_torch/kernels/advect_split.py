@@ -95,17 +95,15 @@ def _launch(prev, vx, vy, vz, a, b, out, dt):
     """The x, y and z passes: prev -> a -> b -> out."""
     Bn, D2, H2, W2 = prev.shape
     D, H, W = D2 - 2, H2 - 2, W2 - 2
-    ptr = _build.ptr
+    ptr, dev = _build.ptr, prev.get_device()
     # (src, vel, dst, out dims, gather axis, src length there, vel offsets, N)
     passes = ((prev, vx, a, (D2, H2, W), 2, W2, (0, 0, 1), W),
               (a, vy, b, (D2, H, W), 1, H2, (0, 1, 1), H),
               (b, vz, out, (D, H, W), 0, D2, (1, 1, 1), D))
-    with torch.cuda.device(prev.device):
-        stream = _build.stream(prev)
-        for src, vel, dst, dims, axis, g, off, n in passes:
-            dtN, hi = _axis_constants(dt, n)
-            _build.call("fst_lerp_pass", ptr(src), ptr(vel), ptr(dst), Bn,
-                        *dims, axis, g, H2, W2, *off, dtN, hi, stream)
+    for src, vel, dst, dims, axis, g, off, n in passes:
+        dtN, hi = _axis_constants(dt, n)
+        _build.launch("fst_lerp_pass", dev, ptr(src), ptr(vel), ptr(dst), Bn,
+                      *dims, axis, g, H2, W2, *off, dtN, hi)
 
 
 def lerp_pass_plain(src: torch.Tensor, vel: torch.Tensor, axis: int,
@@ -150,11 +148,10 @@ def lerp_pass(src: torch.Tensor, vel: torch.Tensor, axis: int, dtN: float,
 
 def _launch_pass(src, vel, out, axis, dtN, off):
     Bn, *dims = out.shape
-    with torch.cuda.device(src.device):
-        _build.call("fst_lerp_pass", _build.ptr(src), _build.ptr(vel),
-                    _build.ptr(out), Bn, *dims, axis, src.shape[axis + 1],
-                    vel.shape[1], vel.shape[2], *off, float(dtN),
-                    _upper(dims[axis]), _build.stream(out))
+    _build.launch("fst_lerp_pass", src.get_device(), _build.ptr(src),
+                  _build.ptr(vel), _build.ptr(out), Bn, *dims, axis,
+                  src.shape[axis + 1], vel.shape[1], vel.shape[2], *off,
+                  float(dtN), _upper(dims[axis]))
 
 
 def _pass_dims(src, vel, axis, off):

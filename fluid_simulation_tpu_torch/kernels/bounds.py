@@ -67,7 +67,7 @@ def pad_bounds(smp: torch.Tensor, bs: Sequence[int],
     B, D, H, W = smp.shape
     if masked:
         for m in (fluid_i, keep_i):
-            _build.mask_view(name, m, (D, H, W), smp.device)
+            _build.mask_view(name, m, (D, H, W), smp.get_device())
     out = torch.empty((B, D + 2, H + 2, W + 2), dtype=smp.dtype,
                       device=smp.device)
     _launch(smp, out, bs, wall_mode, fluid_i, keep_i)
@@ -78,13 +78,12 @@ def pad_bounds(smp: torch.Tensor, bs: Sequence[int],
 def _launch(smp, out, bs, wall_mode, fluid_i=None, keep_i=None):
     B, D, H, W = smp.shape
     mask = _build.neg_mask([face_signs(b, wall_mode) for b in bs])
-    ptr = _build.ptr
-    with torch.cuda.device(smp.device):
-        if fluid_i is None:
-            _build.call("fst_pad_bounds", ptr(smp), ptr(out), B, D, H, W,
-                        mask, _build.stream(smp))
-            return
-        fl, kp = (_build.mask_view("pad_bounds_masked", m, (D, H, W),
-                                   smp.device) for m in (fluid_i, keep_i))
-        _build.call("fst_pad_bounds_masked", ptr(smp), ptr(out), *fl, *kp, B,
-                    D, H, W, mask, _build.stream(smp))
+    ptr, dev = _build.ptr, smp.get_device()
+    if fluid_i is None:
+        _build.launch("fst_pad_bounds", dev, ptr(smp), ptr(out), B, D, H, W,
+                      mask)
+        return
+    fl, kp = (_build.mask_view("pad_bounds_masked", m, (D, H, W), dev)
+              for m in (fluid_i, keep_i))
+    _build.launch("fst_pad_bounds_masked", dev, ptr(smp), ptr(out), *fl, *kp,
+                  B, D, H, W, mask)

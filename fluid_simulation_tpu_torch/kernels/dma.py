@@ -136,8 +136,7 @@ def _launch(a, b, out, form, blk, loader, hb):
     if form == "manual2":
         sms = torch.cuda.get_device_properties(a.device).multi_processor_count
         walk = manual_walk(a.shape, blk, hb, esize, sms)
-    with torch.cuda.device(a.device):
-        _build.call("fst_dma_stream", _build.ptr(a), _build.ptr(b),
-                    _build.ptr(out), D, H, W, int(a.dtype == torch.bfloat16),
-                    FORMS.index(form), int(loader == "tma"), blk, hb, walk,
-                    vec, _build.stream(out))
+    _build.launch("fst_dma_stream", a.get_device(), _build.ptr(a),
+                  _build.ptr(b), _build.ptr(out), D, H, W,
+                  int(a.dtype == torch.bfloat16), FORMS.index(form),
+                  int(loader == "tma"), blk, hb, walk, vec)

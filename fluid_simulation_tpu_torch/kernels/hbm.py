@@ -104,8 +104,6 @@ def _launch(a, b, out, blk, hb, halo, chain):
     aligned = all(t.data_ptr() % 16 == 0 for t in (a, out)
                   + (() if b is None else (b,)))
     vec = 4 if W % 4 == 0 and aligned else 1
-    with torch.cuda.device(a.device):
-        _build.call("fst_hbm_stream", _build.ptr(a),
-                    None if b is None else _build.ptr(b), _build.ptr(out),
-                    D, H, W, blk, hb, int(halo), int(chain), vec,
-                    _build.stream(out))
+    _build.launch("fst_hbm_stream", a.get_device(), _build.ptr(a),
+                  None if b is None else _build.ptr(b), _build.ptr(out), D, H,
+                  W, blk, hb, int(halo), int(chain), vec)

@@ -66,7 +66,7 @@ def rbgs_solve(b: int, field: torch.Tensor, prev: torch.Tensor, a: float,
         if keep is not None:
             keep = keep[1:-1, 1:-1, 1:-1]
             _build.mask_view(name, keep, [n - 2 for n in field.shape],
-                             field.device)
+                             field.get_device())
         _launch(out, prev, b, a, c, acc, wall_mode, keep)
     LAUNCHES[name] += 1
     return out
@@ -82,8 +82,7 @@ def _launch(out, prev, b, a, c, acc, wall_mode, keep=None):
     and with ``keep`` (an interior view) the final red keep multiply."""
     a32, crec = _coeffs(a, c)
     mask = _build.neg_mask([face_signs(b, wall_mode)])
-    with torch.cuda.device(out.device):
-        sweeps(out, prev, a32, crec, acc, mask, keep, _build.stream(out))
+    sweeps(out, prev, a32, crec, acc, mask, keep, out.get_device())
 
 
 def _launch_unpacked(out, prev, b, a, c, acc, wall_mode, keep):
@@ -93,44 +92,39 @@ def _launch_unpacked(out, prev, b, a, c, acc, wall_mode, keep):
     D, H, W = (n - 2 for n in out.shape)
     a32, crec = _coeffs(a, c)
     mask = _build.neg_mask([face_signs(b, wall_mode)])
-    ptr = _build.ptr
-    with torch.cuda.device(out.device):
-        stream = _build.stream(out)
-        for _ in range(acc):
-            for color in (0, 1):
-                _build.call("fst_rbgs_half_unpacked", ptr(out), ptr(prev),
-                            ptr(keep), D, H, W, a32, crec, color, mask,
-                            stream)
-        if acc:
-            kp, ksz, ksy = _build.mask_view(
-                "rbgs_solve_unpacked", keep[1:-1, 1:-1, 1:-1], (D, H, W),
-                out.device)
-            _build.call("fst_keep_red", ptr(out), kp, ksz, ksy, D, H, W,
-                        stream)
-            _build.call("fst_keep_edges", ptr(out), ptr(keep), D, H, W, acc,
-                        stream)
+    ptr, dev = _build.ptr, out.get_device()
+    for _ in range(acc):
+        for color in (0, 1):
+            _build.launch("fst_rbgs_half_unpacked", dev, ptr(out), ptr(prev),
+                          ptr(keep), D, H, W, a32, crec, color, mask)
+    if acc:
+        kp, ksz, ksy = _build.mask_view(
+            "rbgs_solve_unpacked", keep[1:-1, 1:-1, 1:-1], (D, H, W), dev)
+        _build.launch("fst_keep_red", dev, ptr(out), kp, ksz, ksy, D, H, W)
+        _build.launch("fst_keep_edges", dev, ptr(out), ptr(keep), D, H, W,
+                      acc)
 
 
-def sweeps(f, prev, a32, crec, acc, neg_mask, keep, stream):
-    """The half-sweep launches on padded ``f`` in place; with ``keep``, an
-    interior-shaped mask, the keep form and the final red multiply. The
-    masked projection runs its Poisson solve through here too."""
+def sweeps(f, prev, a32, crec, acc, neg_mask, keep, dev):
+    """The half-sweep launches on padded ``f`` in place, on CUDA device
+    ``dev`` (an index); with ``keep``, an interior-shaped mask, the keep
+    form and the final red multiply. The masked projection runs its Poisson
+    solve through here too."""
     D, H, W = (n - 2 for n in f.shape)
     ptr = _build.ptr
     if keep is None:
         for _ in range(acc):
             for color in (0, 1):
-                _build.call("fst_rbgs_half", ptr(f), ptr(prev), D, H, W, a32,
-                            crec, color, neg_mask, stream)
+                _build.launch("fst_rbgs_half", dev, ptr(f), ptr(prev), D, H,
+                              W, a32, crec, color, neg_mask)
         return
-    kp, ksz, ksy = _build.mask_view("rbgs_solve_keep", keep, (D, H, W),
-                                    f.device)
+    kp, ksz, ksy = _build.mask_view("rbgs_solve_keep", keep, (D, H, W), dev)
     for _ in range(acc):
         for color in (0, 1):
-            _build.call("fst_rbgs_half_keep", ptr(f), ptr(prev), kp, ksz, ksy,
-                        D, H, W, a32, crec, color, neg_mask, stream)
+            _build.launch("fst_rbgs_half_keep", dev, ptr(f), ptr(prev), kp,
+                          ksz, ksy, D, H, W, a32, crec, color, neg_mask)
     if acc:
-        _build.call("fst_keep_red", ptr(f), kp, ksz, ksy, D, H, W, stream)
+        _build.launch("fst_keep_red", dev, ptr(f), kp, ksz, ksy, D, H, W)
 
 
 def rbgs_solve3_plain(bs: Sequence[int], f1, f2, f3, p1, p2, p3, a: float,
@@ -162,7 +156,7 @@ def rbgs_solve3(bs: Sequence[int], f1, f2, f3, p1, p2, p3, a: float,
     if keep is not None:
         keep = keep[1:-1, 1:-1, 1:-1]
         _build.mask_view("rbgs_solve3", keep, [n - 2 for n in f1.shape],
-                         f1.device)
+                         f1.get_device())
     outs = tuple(f.clone() for f in fields)
     _launch3(outs, prevs, bs, a, c, acc, wall_mode, keep)
     LAUNCHES["rbgs_solve3"] += 1
@@ -175,17 +169,15 @@ def _launch3(outs, prevs, bs, a, c, acc, wall_mode, keep=None):
     D, H, W = (n - 2 for n in outs[0].shape)
     a32, crec = _coeffs(a, c)
     mask = _build.neg_mask([face_signs(b, wall_mode) for b in bs])
+    dev = outs[0].get_device()
     kp, ksz, ksy = None, 0, 0
     if keep is not None:
-        kp, ksz, ksy = _build.mask_view("rbgs_solve3", keep, (D, H, W),
-                                        outs[0].device)
+        kp, ksz, ksy = _build.mask_view("rbgs_solve3", keep, (D, H, W), dev)
     fp = [_build.ptr(t) for t in outs]
     pp = [_build.ptr(t) for t in prevs]
-    with torch.cuda.device(outs[0].device):
-        stream = _build.stream(outs[0])
-        for _ in range(acc):
-            for color in (0, 1):
-                _build.call("fst_rbgs_half3", *fp, *pp, kp, ksz, ksy, D, H, W,
-                            a32, crec, color, mask, stream)
-        if acc and kp is not None:
-            _build.call("fst_keep_red3", *fp, kp, ksz, ksy, D, H, W, stream)
+    for _ in range(acc):
+        for color in (0, 1):
+            _build.launch("fst_rbgs_half3", dev, *fp, *pp, kp, ksz, ksy, D, H,
+                          W, a32, crec, color, mask)
+    if acc and kp is not None:
+        _build.launch("fst_keep_red3", dev, *fp, kp, ksz, ksy, D, H, W)

@@ -70,13 +70,11 @@ def _launch(out, prev, keep, b, a, c, acc, wall_mode):
     D, H, W = (n - 2 for n in out.shape)
     a32, crec = _coeffs(a, c, torch.float32)
     mask = _build.neg_mask([face_signs(b, wall_mode)])
-    ptr = _build.ptr
-    with torch.cuda.device(out.device):
-        stream = _build.stream(out)
-        for _ in range(acc):
-            for color in (0, 1):
-                _build.call("fst_sweep_half", ptr(out), ptr(prev), None,
-                            None, D, H, W, a32, crec, color, mask, stream)
-            if keep is not None:
-                _build.call("fst_sweep_finish", ptr(out), ptr(keep), D, H, W,
-                            0, stream)
+    ptr, dev = _build.ptr, out.get_device()
+    for _ in range(acc):
+        for color in (0, 1):
+            _build.launch("fst_sweep_half", dev, ptr(out), ptr(prev), None,
+                          None, D, H, W, a32, crec, color, mask)
+        if keep is not None:
+            _build.launch("fst_sweep_finish", dev, ptr(out), ptr(keep), D, H,
+                          W, 0)

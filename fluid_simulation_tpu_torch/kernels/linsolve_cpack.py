@@ -136,15 +136,13 @@ def _launch(R, B, PR, PB, KB, a32, crec, signs, nsweep):
     tensors): two launches each, red then black."""
     D, H, Wh = R.shape
     mask = _build.neg_mask([signs])
-    ptr = _build.ptr
-    with torch.cuda.device(R.device):
-        stream = _build.stream(R)
-        kb = None if KB is None else ptr(KB)
-        for _ in range(nsweep):
-            _build.call("fst_cpack_red", ptr(R), ptr(B), kb, ptr(PR), D, H,
-                        Wh, a32, crec, mask, stream)
-            _build.call("fst_cpack_black", ptr(B), ptr(R), ptr(PB), D, H, Wh,
-                        a32, crec, mask, stream)
+    ptr, dev = _build.ptr, R.get_device()
+    kb = None if KB is None else ptr(KB)
+    for _ in range(nsweep):
+        _build.launch("fst_cpack_red", dev, ptr(R), ptr(B), kb, ptr(PR), D, H,
+                      Wh, a32, crec, mask)
+        _build.launch("fst_cpack_black", dev, ptr(B), ptr(R), ptr(PB), D, H,
+                      Wh, a32, crec, mask)
     return R, B
 
 

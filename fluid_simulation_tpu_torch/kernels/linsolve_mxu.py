@@ -114,10 +114,8 @@ def _check(field, prev, acc):
 def _launch(out, prev, a, c, acc):
     D, H, W = (n - 2 for n in out.shape)
     a32, crec = _coeffs(a, c)
-    with torch.cuda.device(out.device):
-        stream = _build.stream(out)
-        for _ in range(acc):
-            for color in (0, 1):
-                _build.call("fst_rbgs_half_mxu", _build.ptr(out),
-                            _build.ptr(prev), D, H, W, a32, crec, color,
-                            stream)
+    ptr, dev = _build.ptr, out.get_device()
+    for _ in range(acc):
+        for color in (0, 1):
+            _build.launch("fst_rbgs_half_mxu", dev, ptr(out), ptr(prev), D, H,
+                          W, a32, crec, color)

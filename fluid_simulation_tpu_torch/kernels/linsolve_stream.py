@@ -173,7 +173,7 @@ def rbgs_solve_stream(b: int, field, prev, a: float, c: float, acc: int = 15,
     keep_i = None
     if keep is not None:
         keep_i = keep[1:-1, 1:-1, 1:-1]
-        _build.mask_view(name, keep_i, interior, field.device)
+        _build.mask_view(name, keep_i, interior, field.get_device())
     if acc < 1:
         return field.clone()
     rhs_i = prev[1:-1, 1:-1, 1:-1]
@@ -226,24 +226,21 @@ def sweep_pass(fpre, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
 
 def _launch_sweep1(field, rhs_i, out, a, c):
     D, H, W = out.shape
-    rp, rsz, rsy = _build.mask_view("rbgs_sweep1", rhs_i, (D, H, W),
-                                    field.device)
+    dev = field.get_device()
+    rp, rsz, rsy = _build.mask_view("rbgs_sweep1", rhs_i, (D, H, W), dev)
     a32, crec = (float(x) for x in _consts(a, c, torch.float32))
-    with torch.cuda.device(field.device):
-        _build.call("fst_rbgs_sweep1", _build.ptr(field), rp, rsz, rsy,
-                    _build.ptr(out), D, H, W, a32, crec, _build.stream(out))
+    _build.launch("fst_rbgs_sweep1", dev, _build.ptr(field), rp, rsz, rsy,
+                  _build.ptr(out), D, H, W, a32, crec)
 
 
 def _launch_pass(fin, rhs_i, keep_i, out, b, a, c, nsw, wall_mode):
     """One pass of ``nsw`` sweeps from ``fin`` into ``out`` (both packed)."""
     D, H, W = fin.shape
-    rp, rsz, rsy = _build.mask_view("rbgs_pass", rhs_i, (D, H, W),
-                                    fin.device)
+    dev = fin.get_device()
+    rp, rsz, rsy = _build.mask_view("rbgs_pass", rhs_i, (D, H, W), dev)
     kp, ksz, ksy = (None, 0, 0) if keep_i is None else _build.mask_view(
-        "rbgs_pass", keep_i, (D, H, W), fin.device)
+        "rbgs_pass", keep_i, (D, H, W), dev)
     a32, crec = (float(x) for x in _consts(a, c, torch.float32))
     mask = _build.neg_mask([face_signs(b, wall_mode)])
-    with torch.cuda.device(fin.device):
-        _build.call("fst_rbgs_pass", _build.ptr(fin), rp, rsz, rsy, kp, ksz,
-                    ksy, _build.ptr(out), D, H, W, a32, crec, nsw, mask,
-                    _build.stream(out))
+    _build.launch("fst_rbgs_pass", dev, _build.ptr(fin), rp, rsz, rsy, kp,
+                  ksz, ksy, _build.ptr(out), D, H, W, a32, crec, nsw, mask)

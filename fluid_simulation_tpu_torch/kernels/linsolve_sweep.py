@@ -135,7 +135,7 @@ def rbgs_sweep_packed(b: int, fk, rp, kp, gx0, gx1, gy0, gy1, znlo, znhi,
     _build.check_operands(name, ins, ((Dl, H, W), (Dl, H), (Dl, H), (Dl, W),
                                       (Dl, W)) + ((H, W),) * 4)
     for m in (rp, kp):
-        _build.mask_view(name, m, (Dl, H, W), fk.device)
+        _build.mask_view(name, m, (Dl, H, W), fk.get_device())
     outs = tuple(torch.empty(s, dtype=fk.dtype, device=fk.device) for s in
                  ((Dl, H, W), (Dl, H), (Dl, H), (Dl, W), (Dl, W), (H, W),
                   (H, W)))
@@ -175,17 +175,15 @@ def _launch_packed(ins, rp, kp, outs, f1, b, a, c, wall_mode):
     Dl, H, W = fk.shape
     a32, crec = _coeffs(a, c, torch.float32)
     mask = _build.neg_mask([face_signs(b, wall_mode)])
-    ptr = _build.ptr
-    rpv = _build.mask_view("rbgs_sweep_packed", rp, (Dl, H, W), fk.device)
-    kpv = _build.mask_view("rbgs_sweep_packed", kp, (Dl, H, W), fk.device)
-    with torch.cuda.device(fk.device):
-        stream = _build.stream(fk)
-        _build.call("fst_sweep_packed_red", ptr(fk), *rpv, ptr(gx0),
-                    ptr(gx1), ptr(gy0), ptr(gy1), ptr(znlo), ptr(znhi),
-                    ptr(f1), Dl, H, W, a32, crec, stream)
-        _build.call("fst_sweep_packed_black", ptr(f1), *rpv, *kpv, ptr(gx0),
-                    ptr(gx1), ptr(gy0), ptr(gy1), ptr(bp_lo), ptr(bp_hi),
-                    *map(ptr, outs), Dl, H, W, a32, crec, mask, stream)
+    ptr, dev = _build.ptr, fk.get_device()
+    rpv = _build.mask_view("rbgs_sweep_packed", rp, (Dl, H, W), dev)
+    kpv = _build.mask_view("rbgs_sweep_packed", kp, (Dl, H, W), dev)
+    _build.launch("fst_sweep_packed_red", dev, ptr(fk), *rpv, ptr(gx0),
+                  ptr(gx1), ptr(gy0), ptr(gy1), ptr(znlo), ptr(znhi),
+                  ptr(f1), Dl, H, W, a32, crec)
+    _build.launch("fst_sweep_packed_black", dev, ptr(f1), *rpv, *kpv,
+                  ptr(gx0), ptr(gx1), ptr(gy0), ptr(gy1), ptr(bp_lo),
+                  ptr(bp_hi), *map(ptr, outs), Dl, H, W, a32, crec, mask)
 
 
 def _launch_padded(out, prev, keep, bp_lo, bp_hi, b, a, c, wall_mode):
@@ -196,11 +194,9 @@ def _launch_padded(out, prev, keep, bp_lo, bp_hi, b, a, c, wall_mode):
     Dl, H, W = (n - 2 for n in out.shape)
     a32, crec = _coeffs(a, c, torch.float32)
     mask = _build.neg_mask([face_signs(b, wall_mode)])
-    ptr = _build.ptr
-    with torch.cuda.device(out.device):
-        stream = _build.stream(out)
-        for color in (0, 1):
-            _build.call("fst_sweep_half", ptr(out), ptr(prev), ptr(bp_lo),
-                        ptr(bp_hi), Dl, H, W, a32, crec, color, mask, stream)
-        _build.call("fst_sweep_finish", ptr(out),
-                    None if keep is None else ptr(keep), Dl, H, W, 1, stream)
+    ptr, dev = _build.ptr, out.get_device()
+    for color in (0, 1):
+        _build.launch("fst_sweep_half", dev, ptr(out), ptr(prev), ptr(bp_lo),
+                      ptr(bp_hi), Dl, H, W, a32, crec, color, mask)
+    _build.launch("fst_sweep_finish", dev, ptr(out),
+                  None if keep is None else ptr(keep), Dl, H, W, 1)

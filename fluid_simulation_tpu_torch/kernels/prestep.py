@@ -77,7 +77,7 @@ def prestep(vx, vy, vz, fluid_i: Optional[torch.Tensor],
                          f"the kernel's gate (3-D, every side >= 4)")
     if fluid_i is not None:
         for m in (fluid_i, keep_vel_i):
-            _build.mask_view(name, m, [n - 2 for n in vx.shape], vx.device)
+            _build.mask_view(name, m, [n - 2 for n in vx.shape], vx.get_device())
     outs = tuple(torch.empty_like(vx) for _ in range(3))
     rhs = torch.empty_like(vx)     # only its interior is written and read
     p = torch.empty_like(vx)       # zeroed by the kernel
@@ -95,17 +95,14 @@ def _launch(vx, vy, vz, outs, rhs, p, fluid_i, keep_vel_i, a, c, acc,
     a32, crec = _coeffs(a, c)
     nhh, inv_h, inv_2h = (float(x) for x in _coefficients(vx.shape))
     vmask, pmask, prec = _masks(wall_mode)
+    ptr, dev = _build.ptr, vx.get_device()
     fl = kv = (None, 0, 0)
     if fluid_i is not None:
-        fl = _build.mask_view("prestep_masked", fluid_i, (D, H, W), vx.device)
-        kv = _build.mask_view("prestep_masked", keep_vel_i, (D, H, W),
-                              vx.device)
-    ptr = _build.ptr
-    with torch.cuda.device(vx.device):
-        _build.call("fst_prestep", ptr(vx), ptr(vy), ptr(vz),
-                    *map(ptr, outs), ptr(rhs), ptr(p), *fl, *kv, D, H, W,
-                    acc, a32, crec, prec, nhh, inv_h, inv_2h, vmask, pmask,
-                    _build.stream(vx))
+        fl = _build.mask_view("prestep_masked", fluid_i, (D, H, W), dev)
+        kv = _build.mask_view("prestep_masked", keep_vel_i, (D, H, W), dev)
+    _build.launch("fst_prestep", dev, ptr(vx), ptr(vy), ptr(vz),
+                  *map(ptr, outs), ptr(rhs), ptr(p), *fl, *kv, D, H, W, acc,
+                  a32, crec, prec, nhh, inv_h, inv_2h, vmask, pmask)
 
 
 def grid_blocks(device) -> int:

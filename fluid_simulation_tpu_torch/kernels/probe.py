@@ -35,6 +35,5 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x, out):
-    with torch.cuda.device(x.device):
-        _build.call("fst_probe_add1", _build.ptr(x), _build.ptr(out),
-                    x.numel(), _build.stream(x))
+    _build.launch("fst_probe_add1", x.get_device(), x.data_ptr(),
+                  out.data_ptr(), x.numel())

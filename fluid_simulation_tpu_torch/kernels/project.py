@@ -156,14 +156,12 @@ def _launch(vx, vy, vz, rhs, p, acc, wall_mode):
     D, H, W = (n - 2 for n in vx.shape)
     nhh, inv_h, inv_2h = (float(x) for x in _coefficients(vx.shape))
     vmask, pmask, crec = _masks(wall_mode)
-    ptr = _build.ptr
-    with torch.cuda.device(vx.device):
-        stream = _build.stream(vx)
-        _build.call("fst_divergence", ptr(vx), ptr(vy), ptr(vz), ptr(rhs),
-                    D, H, W, nhh, stream)
-        sweeps(p, rhs, 1.0, crec, acc, pmask, None, stream)
-        _build.call("fst_grad_faces", ptr(vx), ptr(vy), ptr(vz), ptr(p),
-                    D, H, W, inv_h, inv_2h, vmask, stream)
+    ptr, dev = _build.ptr, vx.get_device()
+    _build.launch("fst_divergence", dev, ptr(vx), ptr(vy), ptr(vz), ptr(rhs),
+                  D, H, W, nhh)
+    sweeps(p, rhs, 1.0, crec, acc, pmask, None, dev)
+    _build.launch("fst_grad_faces", dev, ptr(vx), ptr(vy), ptr(vz), ptr(p),
+                  D, H, W, inv_h, inv_2h, vmask)
 
 
 def project_masked_plain(vx, vy, vz, fluid_i, keep_vel_i, acc: int = 15,
@@ -205,7 +203,7 @@ def project_masked(vx, vy, vz, fluid_i, keep_vel_i, acc: int = 15,
         raise ValueError(f"project_masked: bad padded shape {tuple(vx.shape)}")
     interior = tuple(n - 2 for n in vx.shape)
     for m in (fluid_i, keep_vel_i):
-        _build.mask_view("project_masked", m, interior, vx.device)
+        _build.mask_view("project_masked", m, interior, vx.get_device())
     outs = tuple(v.clone() for v in (vx, vy, vz))
     rhs = torch.empty_like(vx)     # only its interior is written and read
     p = torch.zeros_like(vx)
@@ -221,13 +219,11 @@ def _launch_masked(vx, vy, vz, rhs, p, fluid_i, keep_vel_i, acc, wall_mode):
     D, H, W = (n - 2 for n in vx.shape)
     nhh, inv_h, inv_2h = (float(x) for x in _coefficients(vx.shape))
     vmask, pmask, crec = _masks(wall_mode)
-    fl = _build.mask_view("project_masked", fluid_i, (D, H, W), vx.device)
-    kv = _build.mask_view("project_masked", keep_vel_i, (D, H, W), vx.device)
-    ptr = _build.ptr
-    with torch.cuda.device(vx.device):
-        stream = _build.stream(vx)
-        _build.call("fst_divergence_masked", ptr(vx), ptr(vy), ptr(vz), *fl,
-                    ptr(rhs), D, H, W, nhh, stream)
-        sweeps(p, rhs, 1.0, crec, acc, pmask, fluid_i, stream)
-        _build.call("fst_grad_faces_masked", ptr(vx), ptr(vy), ptr(vz),
-                    ptr(p), *fl, *kv, D, H, W, inv_h, inv_2h, vmask, stream)
+    ptr, dev = _build.ptr, vx.get_device()
+    fl = _build.mask_view("project_masked", fluid_i, (D, H, W), dev)
+    kv = _build.mask_view("project_masked", keep_vel_i, (D, H, W), dev)
+    _build.launch("fst_divergence_masked", dev, ptr(vx), ptr(vy), ptr(vz),
+                  *fl, ptr(rhs), D, H, W, nhh)
+    sweeps(p, rhs, 1.0, crec, acc, pmask, fluid_i, dev)
+    _build.launch("fst_grad_faces_masked", dev, ptr(vx), ptr(vy), ptr(vz),
+                  ptr(p), *fl, *kv, D, H, W, inv_h, inv_2h, vmask)

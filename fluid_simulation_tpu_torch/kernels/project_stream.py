@@ -108,7 +108,7 @@ def _project_on_card(name, vx, vy, vz, fluid_i, acc, wall_mode, nsw):
                          f"{ls.KERNEL_NSW}")
     interior = tuple(n - 2 for n in vx.shape)
     if fluid_i is not None:
-        _build.mask_view(name, fluid_i, interior, vx.device)
+        _build.mask_view(name, fluid_i, interior, vx.get_device())
     rhs = vx.new_empty(interior)
     _launch_div(vx, vy, vz, fluid_i, rhs)
     fpre = ls.passes(torch.zeros_like(rhs), rhs, fluid_i, 0, 1.0, 6.0, acc,
@@ -148,19 +148,17 @@ def _mask(name, fluid_i, shape, device):
 
 def _launch_div(vx, vy, vz, fluid_i, rhs):
     D, H, W = rhs.shape
-    fl = _mask("div_packed", fluid_i, (D, H, W), vx.device)
+    ptr, dev = _build.ptr, vx.get_device()
+    fl = _mask("div_packed", fluid_i, (D, H, W), dev)
     nhh = float(_coefficients(vx.shape)[0])
-    ptr = _build.ptr
-    with torch.cuda.device(vx.device):
-        _build.call("fst_div_packed", ptr(vx), ptr(vy), ptr(vz), *fl,
-                    ptr(rhs), D, H, W, nhh, _build.stream(vx))
+    _build.launch("fst_div_packed", dev, ptr(vx), ptr(vy), ptr(vz), *fl,
+                  ptr(rhs), D, H, W, nhh)
 
 
 def _launch_grad(vx, vy, vz, fpre, fluid_i, out):
     D, H, W = fpre.shape
-    fl = _mask("grad_packed", fluid_i, (D, H, W), vx.device)
+    ptr, dev = _build.ptr, vx.get_device()
+    fl = _mask("grad_packed", fluid_i, (D, H, W), dev)
     _, inv_h, inv_2h = (float(x) for x in _coefficients(vx.shape))
-    ptr = _build.ptr
-    with torch.cuda.device(vx.device):
-        _build.call("fst_grad_packed", ptr(vx), ptr(vy), ptr(vz), ptr(fpre),
-                    *fl, ptr(out), D, H, W, inv_h, inv_2h, _build.stream(vx))
+    _build.launch("fst_grad_packed", dev, ptr(vx), ptr(vy), ptr(vz),
+                  ptr(fpre), *fl, ptr(out), D, H, W, inv_h, inv_2h)

@@ -107,11 +107,10 @@ def sweep_pass_variant(fpre, rhs_i, variant: str, nsw: int, b: int,
 
 def _launch(fin, rhs_i, out, variant, nsw, b, a, c, wall_mode):
     D, H, W = fin.shape
-    rp, rsz, rsy = _build.mask_view("sweepcost_pass", rhs_i, (D, H, W),
-                                    fin.device)
+    dev = fin.get_device()
+    rp, rsz, rsy = _build.mask_view("sweepcost_pass", rhs_i, (D, H, W), dev)
     a32, crec = (float(x) for x in _consts(a, c, torch.float32))
     mask = _build.neg_mask([face_signs(b, wall_mode)])
-    with torch.cuda.device(fin.device):
-        _build.call("fst_sweepcost_pass", _build.ptr(fin), rp, rsz, rsy,
-                    _build.ptr(out), D, H, W, a32, crec, nsw, mask,
-                    VARIANTS.index(variant), _build.stream(out))
+    _build.launch("fst_sweepcost_pass", dev, _build.ptr(fin), rp, rsz, rsy,
+                  _build.ptr(out), D, H, W, a32, crec, nsw, mask,
+                  VARIANTS.index(variant))

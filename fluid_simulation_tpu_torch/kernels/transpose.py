@@ -89,12 +89,10 @@ def _check_view(name, v):
 
 def _launch_transpose(v, out):
     B, R, C = v.shape
-    with torch.cuda.device(v.device):
-        _build.call("fst_transpose", _build.ptr(v), _build.ptr(out), B, R, C,
-                    *v.stride(), _build.stream(out))
+    _build.launch("fst_transpose", v.get_device(), _build.ptr(v),
+                  _build.ptr(out), B, R, C, *v.stride())
 
 
 def _launch_copy(v, out, scale):
-    with torch.cuda.device(v.device):
-        _build.call("fst_strided_copy", _build.ptr(v), _build.ptr(out),
-                    *v.shape, *v.stride(), float(scale), _build.stream(out))
+    _build.launch("fst_strided_copy", v.get_device(), _build.ptr(v),
+                  _build.ptr(out), *v.shape, *v.stride(), float(scale))

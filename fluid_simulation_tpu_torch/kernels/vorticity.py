@@ -37,7 +37,7 @@ def confinement(vx, vy, vz, keep_vel_i, eps: float, dt: float):
     if vx.ndim != 3 or min(vx.shape) < 3:
         raise ValueError(f"confinement: bad padded shape {tuple(vx.shape)}")
     D, H, W = (n - 2 for n in vx.shape)
-    _build.mask_view("confinement", keep_vel_i, (D, H, W), vx.device)
+    _build.mask_view("confinement", keep_vel_i, (D, H, W), vx.get_device())
     outs = tuple(torch.empty_like(vx) for _ in range(3))
     w = torch.empty((3, D, H, W), dtype=vx.dtype, device=vx.device)
     mag = torch.zeros_like(vx)    # |omega|; its zero ghost shell is read
@@ -51,11 +51,9 @@ def _launch(vx, vy, vz, keep_vel_i, w, mag, outs, eps, dt):
     (into ``outs``)."""
     D, H, W = (n - 2 for n in vx.shape)
     s_lit = as_scalar(np.float32(eps) * np.float32(dt), torch.float32)
-    ptr = _build.ptr
-    kp = _build.mask_view("confinement", keep_vel_i, (D, H, W), vx.device)
-    with torch.cuda.device(vx.device):
-        stream = _build.stream(vx)
-        _build.call("fst_curl", ptr(vx), ptr(vy), ptr(vz), ptr(w), ptr(mag),
-                    D, H, W, stream)
-        _build.call("fst_confine", ptr(vx), ptr(vy), ptr(vz), ptr(w),
-                    ptr(mag), *kp, *map(ptr, outs), D, H, W, s_lit, stream)
+    ptr, dev = _build.ptr, vx.get_device()
+    kp = _build.mask_view("confinement", keep_vel_i, (D, H, W), dev)
+    _build.launch("fst_curl", dev, ptr(vx), ptr(vy), ptr(vz), ptr(w),
+                  ptr(mag), D, H, W)
+    _build.launch("fst_confine", dev, ptr(vx), ptr(vy), ptr(vz), ptr(w),
+                  ptr(mag), *kp, *map(ptr, outs), D, H, W, s_lit)

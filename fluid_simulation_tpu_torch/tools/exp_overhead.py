@@ -30,26 +30,45 @@ live in this module only: no route, wrapper or step of the package uses
 one. ``LAUNCHES`` moves at capture, not at replay, so launch counts come
 from the eager arm.
 
+On the card it then prints the host split of one wrapper call
+(``host_split``) for ``add_one`` on (8, 128) and for
+``trilinear_gather_window`` (K9) on random backtraces at ``--shape``: the
+host nanoseconds of each part of a launch, ``time.perf_counter_ns`` over
+10,000 calls per part (best of 3, the empty loop's cost taken off), in
+batches of 100 with a synchronise between batches outside the clock, so
+that the card never holds the host back. The parts are those of
+``_build.launch`` and the wrapper around it: the checks, the output
+allocation, the current-device test that stands in for a device guard,
+the raw current stream, the pointers as plain ints, the ctypes call and
+the C launch. The ctypes call is timed through a no-op entry point of the
+same signature (``csrc/probe.cu``), and the C launch is the real entry
+point's time less the no-op's.
+
 ``--device cpu`` runs the eager arm on the host clock at whatever
-``--shape`` is given (a test runs it tiny); it prints no device metric
-and has no graph arm.
+``--shape`` is given (a test runs it tiny); it prints no device metric,
+and has no graph arm and no host split.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
 
 from fluid_simulation_tpu_torch.config import SimParams
+from fluid_simulation_tpu_torch.kernels import _build
+from fluid_simulation_tpu_torch.kernels.advect_compat import (
+    trilinear_gather_window)
 from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
 from fluid_simulation_tpu_torch.kernels.prestep import prestep
 from fluid_simulation_tpu_torch.kernels.probe import add_one
 from fluid_simulation_tpu_torch.kernels.project import project_empty
+from fluid_simulation_tpu_torch.ops.advect import backtrace
 from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
 from fluid_simulation_tpu_torch.tools._timing import (
     capture, clock_line, event_timer, host_timer, slope)
@@ -147,6 +166,113 @@ def format_row(r: dict) -> str:
             f"{graph}")
 
 
+@dataclass
+class Launch:
+    """One wrapper's launch as the host split takes it apart: the wrapper
+    end to end (``call``), its C entry point and the no-op of the same
+    signature, its pointer operands and the arguments after them (the
+    stream comes last), its checks and its output allocation."""
+    wrapper: str
+    call: Callable[[], Any]
+    entry: str
+    noop: str
+    ptrs: Tuple[torch.Tensor, ...]
+    args: tuple
+    checks: Callable[[], Any]
+    alloc: Callable[[], Any]
+
+
+def launches(device="cuda", shape=(128, 64, 64)) -> List[Launch]:
+    """``add_one`` on (8, 128) and K9 at ``shape`` (W, H, D) on backtraces
+    of random velocities that reach 10 and more cells (chip_smoke.py's)."""
+    x = torch.zeros((8, 128), device=device)
+    W, H, D = shape
+    rng = np.random.default_rng(1)
+    prev = torch.tensor(rng.normal(size=(D + 2, H + 2, W + 2)).astype(
+        np.float32), device=device)
+    vel = [torch.tensor(rng.uniform(lo, hi, (D, H, W)).astype(np.float32),
+                        device=device)
+           for lo, hi in ((-20.0, 40.0), (-5.0, 5.0), (-5.0, 5.0))]
+    xb, yb, zb = backtrace(*vel, 0.05, W, H, D, torch.float32)
+    interior = (D, H, W)
+
+    def k9_checks():
+        if prev.ndim != 3 or min(prev.shape) < 3:
+            raise ValueError("trilinear_gather: bad padded shape")
+        box = tuple(n - 2 for n in prev.shape)
+        _build.check_operands("trilinear_gather", (prev, xb, yb, zb),
+                              (None, box, box, box))
+
+    def add1_checks():
+        _build.check_operands("probe_add1", (x,))
+        if not 0 < x.numel() < 2 ** 31:
+            raise ValueError("probe_add1: size")
+
+    return [
+        Launch("add_one (8, 128)", lambda: add_one(x), "fst_probe_add1",
+               "fst_probe_noop", (x, torch.empty_like(x)), (x.numel(),),
+               add1_checks, lambda: torch.empty_like(x)),
+        Launch(f"trilinear_gather {W}x{H}x{D}",
+               lambda: trilinear_gather_window(prev, xb, yb, zb),
+               "fst_trilinear_gather", "fst_probe_noop9",
+               (prev, xb, yb, zb, torch.empty_like(xb)), interior, k9_checks,
+               lambda: torch.empty_like(xb)),
+    ]
+
+
+def _ns_per_call(fn, n: int, batch: int = 100) -> float:
+    """Host nanoseconds per call of ``fn``: the best of 3 runs of ``n``
+    calls, each in batches of ``batch`` with a synchronise between batches
+    outside the clock."""
+    best = float("inf")
+    for _ in range(3):
+        total = 0
+        for _ in range(n // batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(batch):
+                fn()
+            total += time.perf_counter_ns() - t0
+        best = min(best, total / (n // batch * batch))
+    return best
+
+
+def host_split(launch: Launch, n: int = 10_000) -> List[tuple]:
+    """``(part, ns)`` of one wrapper call on the card, each part less the
+    empty loop's cost; the last rows are the sum of the parts and the whole
+    call (the wrapper itself)."""
+    idx, C = launch.ptrs[0].get_device(), torch._C
+    ptrs = [u.data_ptr() for u in launch.ptrs]
+    stream = C._cuda_getCurrentRawStream(idx)
+    _build.library()
+    noop, entry = _build._ENTRY[launch.noop], _build._ENTRY[launch.entry]
+    parts = [
+        ("checks", launch.checks),
+        ("output allocation", launch.alloc),
+        ("device test", lambda: idx == C._cuda_getDevice()),
+        ("current stream", lambda: C._cuda_getCurrentRawStream(idx)),
+        ("pointers", lambda: tuple(map(_build.ptr, launch.ptrs))),
+        ("ctypes call (no-op)", lambda: noop(*ptrs, *launch.args, stream)),
+        ("ctypes call + C launch",
+         lambda: entry(*ptrs, *launch.args, stream)),
+    ]
+    empty = _ns_per_call(lambda: None, n)
+    rows = [(name, _ns_per_call(fn, n) - empty) for name, fn in parts]
+    # the C launch alone: the real entry point less the no-op
+    rows[-1] = ("C launch (entry - no-op)", rows[-1][1] - rows[-2][1])
+    rows.append(("sum of the parts", sum(r[1] for r in rows)))
+    rows.append(("whole call", _ns_per_call(launch.call, n) - empty))
+    torch.cuda.synchronize()
+    return rows
+
+
+def format_split(launch: Launch, rows) -> str:
+    lines = [f"host split of {launch.wrapper} (ns per call, "
+             f"_build.launch)"]
+    lines += [f"  {name:26s} {ns:9.1f}" for name, ns in rows]
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -163,6 +289,9 @@ def main(argv=None) -> int:
     print(f"{clock_line('exp_overhead', device)}, n = {args.n}", flush=True)
     for row in rows(device, tuple(args.shape), args.acc):
         print(format_row(measure(row, args.n, device)), flush=True)
+    if device.type == "cuda":
+        for launch in launches(device, tuple(args.shape)):
+            print(format_split(launch, host_split(launch)), flush=True)
     return 0
 
 

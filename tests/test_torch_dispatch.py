@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
     LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
-    dma as k23d, hbm as k23h, linsolve as k1, linsolve_blocked as k22c,
+    dma as k23d, hbm as k23h, lerpcost as k24, linsolve as k1,
+    linsolve_blocked as k22c,
     linsolve_cpack as k22b, linsolve_mxu as k23m, linsolve_stream as k11,
     linsolve_sweep as k15, prestep as k22a, probe as k23, project as k2,
     project_stream as k14, reset_launches, sweepcost as k23s,
@@ -36,7 +37,7 @@ from fluid_simulation_tpu_torch.scene.masks import build_masks
 from fluid_simulation_tpu_torch.scene.primitives import (
     add_sphere, empty_obstacles)
 from fluid_simulation_tpu_torch.tools import (
-    exp_hbm, exp_hbm2, exp_overhead, exp_sweepcost)
+    exp_hbm, exp_hbm2, exp_lerpcost, exp_overhead, exp_sweepcost)
 
 torch.set_num_threads(1)
 
@@ -320,6 +321,15 @@ def stub_mxu(out, prev, a, c, acc):
     out.copy_(k23m.rbgs_solve_mxu_plain(out, prev, a, c, acc))
 
 
+def stub_lerpcost(arr, xb, out, variant):
+    _operand(arr, arr.shape)
+    _operand(xb, (arr.shape[1], out.shape[2]))
+    _operand(out, (arr.shape[0], arr.shape[1], xb.shape[1]))
+    assert variant in k24.VARIANTS
+    _distinct(arr, xb, out)
+    out.copy_(k24.lerpcost_pass_plain(arr, xb, variant))
+
+
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launchers are stubs."""
@@ -348,7 +358,8 @@ def card(monkeypatch):
                             (k23t, "_launch_transpose", stub_transpose),
                             (k23t, "_launch_copy", stub_strided_copy),
                             (k3, "_launch_pass", stub_lerp_pass),
-                            (k23m, "_launch", stub_mxu)):
+                            (k23m, "_launch", stub_mxu),
+                            (k24, "_launch", stub_lerpcost)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -723,12 +734,15 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out29 = k23t.strided_copy(vx.transpose(0, 1), 2.0)
     out30 = k3.lerp_pass(vx[None], vy, 1, 0.4, (0, 1, 0))
     out31 = k23m.rbgs_solve_mxu(vx, g, 0.5, 4.0, acc=2)
+    stack, plane = torch.stack([vx, vy]).reshape(2, -1, W + 2), g.reshape(
+        -1, W + 2) * 4.0 + 8.0
+    out32 = k24.lerpcost_pass(stack, plane, "full")
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
               out13, *out14, out15, out16, *out17, out18, *out19, *out20,
               out21, out22, out23, out24, out25, out26, out27, out28, out29,
-              out30, out31):
+              out30, out31, out32):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -772,6 +786,7 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     assert torch.equal(out30, k3.lerp_pass_plain(vx[None], vy, 1, 0.4,
                                                  (0, 1, 0)))
     assert torch.equal(out31, k1.rbgs_solve_plain(0, vx, g, 0.5, 4.0, 2))
+    assert torch.equal(out32, k24.lerpcost_pass_plain(stack, plane, "full"))
     # every wrapper once; the colour-packed solves' sweep 1 adds one K1
     # keep solve and one blocked sweep
     assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
@@ -987,9 +1002,175 @@ def test_launch_error_raises(monkeypatch):
         def fst_error_string(code):
             return b"invalid configuration argument"
 
-    monkeypatch.setattr(_build, "library", lambda: FakeLib)
+    _stub_library(monkeypatch, FakeLib)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         _build.call("fst_rbgs_half", ctypes.c_void_p(0))
+
+
+def _stub_library(monkeypatch, lib):
+    """Stand ``lib`` in for the kernel library. Its entry points leave
+    ``_build._ENTRY`` until the first lookup loads the library, which puts
+    them there as ``library()`` does."""
+    names = [n for n in vars(lib) if n.startswith("fst_")]
+    for n in names:
+        monkeypatch.delitem(_build._ENTRY, n, raising=False)
+
+    def library():
+        for n in names:
+            monkeypatch.setitem(_build._ENTRY, n, getattr(lib, n))
+        return lib
+
+    monkeypatch.setattr(_build, "library", library)
+
+
+@pytest.mark.parametrize("variant", list(k24.VARIANTS))
+def test_lerpcost_pass_is_one_launch(card, variant):
+    rng = np.random.default_rng(11)
+    arr = torch.tensor(rng.normal(size=(3, 5, 130)), dtype=torch.float32)
+    xb = torch.tensor(rng.uniform(-1.0, 130.0, size=(5, 128)),
+                      dtype=torch.float32)
+    assert torch.equal(k24.lerpcost_pass(arr, xb, variant),
+                       k24.lerpcost_pass_plain(arr, xb, variant))
+    assert LAUNCHES == _counts(lerpcost_pass=1)
+    # every refusal of lane_lerp_stack and of the tool's bodies, before a
+    # launch
+    with pytest.raises(ValueError, match="row mismatch"):
+        k24.lerpcost_pass(arr, xb[:-1], variant)
+    with pytest.raises(ValueError, match="too wide"):
+        k24.lerpcost_pass(torch.zeros(1, 2, 1665), torch.zeros(2, 4),
+                          variant)
+    with pytest.raises(ValueError, match="idx width"):
+        k24.lerpcost_pass(arr[:, :, :100].contiguous(), xb[:, :98], variant)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k24.lerpcost_pass(arr, xb.to(torch.bfloat16), variant)
+    with pytest.raises(ValueError, match="not contiguous"):
+        k24.lerpcost_pass(arr, xb.t().contiguous().t(), variant)
+    if variant != "full":
+        with pytest.raises(ValueError, match="at least 128"):
+            k24.lerpcost_pass(arr, xb[:, :100], variant)
+    assert LAUNCHES == _counts(lerpcost_pass=1)
+
+
+def test_lerpcost_probe_counts_its_launches(card):
+    """One call of every probe row: eight variant passes (four variants on
+    two index planes) and K3's own x pass."""
+    for row in exp_lerpcost.rows(CPU, (130, 6, 4)):
+        row.kernel(row.x0)
+    assert LAUNCHES == _counts(lerpcost_pass=8, lerp_pass=1)
+
+
+class _Guard:
+    """Stands for ``torch.cuda.device``: records the devices entered."""
+    entered = []
+
+    def __init__(self, index):
+        self.index = index
+
+    def __enter__(self):
+        _Guard.entered.append(self.index)
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``launch`` on a host without a card: a current device 0, a raw
+    stream handle that changes at every read, a recording device guard and
+    a recording entry point."""
+    reads, calls = [], []
+
+    def raw_stream(index):
+        reads.append(index)
+        return 1000 * index + len(reads)
+
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", raw_stream,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "device", _Guard)
+    monkeypatch.setattr(_Guard, "entered", [])
+    monkeypatch.setitem(_build._ENTRY, "fst_fake",
+                        lambda *args: calls.append(args) or 0)
+    return reads, calls
+
+
+def test_launch_reads_the_stream_at_each_call(fake_card):
+    reads, calls = fake_card
+    x = torch.zeros(3)
+    _build.launch("fst_fake", 0, _build.ptr(x), 7, 0.5)
+    _build.launch("fst_fake", 0, None, 8, 1.5)
+    # the stream read at each call, appended last; pointers as plain ints
+    assert calls == [(x.data_ptr(), 7, 0.5, 1), (None, 8, 1.5, 2)]
+    assert reads == [0, 0]
+    assert isinstance(_build.ptr(x), int)
+    assert _Guard.entered == []          # on the current device: no guard
+
+
+def test_launch_guards_only_off_the_current_device(fake_card):
+    reads, calls = fake_card
+    _build.launch("fst_fake", 1, 5)
+    _build.launch("fst_fake", 0, 6)
+    assert _Guard.entered == [1]
+    assert reads == [1, 0]
+    assert calls == [(5, 1001), (6, 2)]
+
+
+def test_launch_error_raises_through_the_helper(fake_card, monkeypatch):
+    """A nonzero cudaGetLastError() from a launch is an exception, and an
+    entry point the dict does not hold yet is found by loading the
+    library."""
+    class FakeLib:
+        @staticmethod
+        def fst_rbgs_half(*args):
+            return 9
+
+        @staticmethod
+        def fst_error_string(code):
+            return b"invalid configuration argument"
+
+    _stub_library(monkeypatch, FakeLib)
+    monkeypatch.setitem(_build._ENTRY, "fst_fake", lambda *args: 700)
+    with pytest.raises(RuntimeError, match="fst_rbgs_half: CUDA error 9"):
+        _build.launch("fst_rbgs_half", 0, 0)
+    with pytest.raises(RuntimeError, match="fst_fake: CUDA error 700"):
+        _build.launch("fst_fake", 1, 0)
+
+
+def test_check_refusal_messages(monkeypatch):
+    """Every refusal of ``check_operands`` and ``mask_view``, word for
+    word."""
+    x = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match=r"^k: operand 0 on cpu, expected "
+                       r"the card \(cpu\)$"):
+        _build.check_operands("k", (x,))
+    monkeypatch.setattr(_build, "on_card", lambda t: True)
+    with pytest.raises(NotImplementedError, match=(
+            r"^k: torch.bfloat16 is not ported to the card yet \(ROADMAP "
+            r"A11\); this kernel takes torch.float32$")):
+        _build.check_operands("k", (x, x.to(torch.bfloat16)))
+    with pytest.raises(ValueError, match=r"^k: operand 1 is not contiguous$"):
+        _build.check_operands("k", (x, x.t()))
+    with pytest.raises(ValueError, match=(r"^k: operand 1 has shape \(2, "
+                                          r"3\), expected \(3, 2\)$")):
+        _build.check_operands("k", (x, x), (None, [3, 2]))
+    _build.check_operands("k", (x, x.to(torch.bfloat16)), (x.shape, (2, 3)),
+                          dtypes=(torch.float32, torch.bfloat16))
+    m = torch.zeros(4, 5, 6)
+    with pytest.raises(ValueError, match=r"^k: mask on cpu, expected "
+                       r"cuda:0$"):
+        _build.mask_view("k", m, (4, 5, 6), 0)
+    with pytest.raises(NotImplementedError, match=(
+            r"^k: torch.float64 mask is not ported to the card yet \(ROADMAP"
+            r" A11\); only float32 kernels exist$")):
+        _build.mask_view("k", m.double(), (4, 5, 6), -1)
+    with pytest.raises(ValueError, match=r"x stride 1$"):
+        _build.mask_view("k", m.transpose(1, 2), (4, 6, 5), -1)
+    with pytest.raises(ValueError, match=r"expected \(4, 5, 7\)"):
+        _build.mask_view("k", m, [4, 5, 7], -1)
+    big = torch.zeros(6, 7, 8)
+    assert _build.mask_view("k", big[1:-1, 1:-1, 1:-1], (4, 5, 6), -1) == (
+        big[1:-1, 1:-1, 1:-1].data_ptr(), 56, 8)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -1007,7 +1188,7 @@ def test_sources_and_sign_mask():
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
             "trilinear.cu", "rbgs_sweep.cu", "prestep.cu",
             "rbgs_cpack.cu", "probe.cu", "hbm.cu", "sweepcost.cu", "dma.cu",
-            "transpose.cu", "rbgs_mxu.cu",
+            "transpose.cu", "rbgs_mxu.cu", "lerpcost.cu",
             "rbgs_tile.cuh", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     # field 0 x-negated, field 1 y-negated, field 2 z-negated

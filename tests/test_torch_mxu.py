@@ -20,7 +20,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from fluid_simulation_tpu_torch.kernels import (
-    LAUNCHES, _build, linsolve_mxu as kmxu, reset_launches)
+    LAUNCHES, _build, reset_launches)
 from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
 from fluid_simulation_tpu_torch.kernels.linsolve_mxu import (
     band_flops, rbgs_solve_mxu, rbgs_solve_mxu_plain)
@@ -109,9 +109,7 @@ def test_card_branch_is_one_count_for_2acc_launches(monkeypatch):
     clone, counted once; a float64 field raises."""
     calls = []
     monkeypatch.setattr(_build, "on_card", lambda t: True)
-    monkeypatch.setattr(_build, "stream", lambda t: None)
-    monkeypatch.setattr(kmxu.torch.cuda, "device", lambda d: _Null())
-    monkeypatch.setattr(_build, "call", lambda name, *args:
+    monkeypatch.setattr(_build, "launch", lambda name, device, *args:
                         calls.append((name, args[2:5], args[7])))
     reset_launches()
     f0, g0 = (torch.tensor(x) for x in _inputs((8, 7, 10)))
@@ -123,11 +121,3 @@ def test_card_branch_is_one_count_for_2acc_launches(monkeypatch):
     with pytest.raises(NotImplementedError, match="A11"):
         rbgs_solve_mxu(f0.double(), g0.double())
     reset_launches()
-
-
-class _Null:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False

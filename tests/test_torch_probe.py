@@ -6,7 +6,8 @@ exp_overhead.py``, ROADMAP B23) and its tiny kernel's plain version
 (``tools/exp_overhead.py:49-50``, ``x + 1.0``, as XLA computes it). The
 slope helper is held to JAX's formula on a stubbed clock. The probe runs
 its eager arm here at a tiny size on the host clock; its graph arm needs
-the card and raises here.
+the card and raises here, and its host split's launches are held to their
+C entry points' signatures.
 """
 
 import numpy as np
@@ -15,7 +16,9 @@ import torch
 
 import jax.numpy as jnp
 
+from fluid_simulation_tpu_torch.kernels import _build
 from fluid_simulation_tpu_torch.kernels.probe import add_one, add_one_plain
+from fluid_simulation_tpu_torch.ops.advect import trilinear_gather
 from fluid_simulation_tpu_torch.tools import exp_overhead
 
 torch.set_num_threads(1)
@@ -101,3 +104,23 @@ def test_probe_needs_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         exp_overhead.main(["--n", "1"])
+
+
+def test_host_split_launches_match_their_entry_points():
+    """The host split's launches carry their C entry points' arguments in
+    order, each beside a no-op of the same signature; on the host their
+    wrappers run the plain versions, their allocations give the output's
+    shape, and their checks refuse a tensor off the card as the port's
+    do."""
+    add1, k9 = exp_overhead.launches("cpu", (16, 8, 8))
+    for launch in (add1, k9):
+        sig = _build.SIGNATURES[launch.entry]
+        assert _build.SIGNATURES[launch.noop] == sig
+        assert len(launch.ptrs) + len(launch.args) + 1 == len(sig)
+        assert launch.alloc().shape == launch.ptrs[-1].shape
+        with pytest.raises(ValueError, match="operand 0 on cpu"):
+            launch.checks()
+    assert torch.equal(add1.call(), torch.ones(8, 128))
+    prev, xb, yb, zb, _ = k9.ptrs
+    assert torch.equal(k9.call(), trilinear_gather(prev, xb, yb, zb))
+    assert k9.args == (8, 8, 16)
