@@ -121,13 +121,18 @@ final ``ok`` line):
     the stream, the transpose, the strided copy, K3's single pass and the
     tensor-core solve with the counts set to 0 just before and read just
     after (1 each, nothing else); every form of the stream (copy2 and
-    copy2h with both loaders, manual2) in f32 and bf16 at blk 8 and 16
-    against its plain version, bitwise, at 48x19x200, a ragged 40x7x13
-    (ldg) and 256^3; the transposes at every shape of the JAX probes and
-    of the boundary rows, the y pass by transposes against K3's direct y
-    pass; the solve at 128x64x64 and an odd 13x7x5 against its plain
-    version and K1 unpacked; their times and bounds; then the three probes
-    at 256^3 (dma, boundary), their own shapes and 128x64x64 (mxu);
+    copy2h with both loaders, manual2) in f32 and bf16 at blk 3 (copy2's
+    ragged z-block end), 8 and 16 against its plain version, bitwise, at
+    48x19x200, a ragged 40x7x13 (ldg), a ragged 72x9x37 and 256^3; the
+    tensor-map cache (two pairs of one shape, the first again, a new
+    pair); the transposes at every shape of the JAX probes and of the
+    boundary rows, the strided copy's three paths and every merge and
+    fallback case (the path each view takes checked), the y pass by
+    transposes against K3's direct y pass; the solve at 128x64x64 and an
+    odd 13x7x5 against its plain version and K1 unpacked; their times and
+    bounds, store_strided beside ``a * 2``; then the three probes at 256^3
+    (dma, boundary; probe3's bytes-bound view), their own shapes and
+    128x64x64 (mxu);
 21. the degrade variants of K3's stacked x pass (B24's ``exp_lerpcost``,
     ``lerpcost``): one call with the counts set to 0 just before and read
     just after (1, nothing else), on a ragged (3, 37, 200) stack with a
@@ -1651,7 +1656,8 @@ class Smoke:
         from fluid_simulation_tpu_torch.kernels.linsolve_mxu import (
             A, C, band_flops, rbgs_solve_mxu, rbgs_solve_mxu_plain)
         from fluid_simulation_tpu_torch.kernels.transpose import (
-            strided_copy, strided_copy_plain, transpose2d, transpose2d_plain)
+            copy_path, strided_copy, strided_copy_plain, transpose2d,
+            transpose2d_plain)
         from fluid_simulation_tpu_torch.tools import (
             exp_dma, exp_solve_mxu, exp_transpose)
 
@@ -1676,15 +1682,17 @@ class Smoke:
         for name in want:
             self.kern[name]["launches"] = counts[name]
 
-        # the stream: every form, both loaders, both dtypes, both blk
-        for D, H, W in ((48, 19, 200), (40, 7, 13), big):
+        # the stream: every form, both loaders, both dtypes, blk 8 and 16
+        # (and an odd 3 where the form takes it), whole and ragged z-blocks,
+        # ragged tiles
+        for D, H, W in ((48, 19, 200), (40, 7, 13), (37, 9, 72), big):
             tag = f"{W}x{H}x{D}"
             a32, b32 = ((x, y) if (D, H, W) == big else
                         (self.rand(rng, (D, H, W)), self.rand(rng, (D, H, W))))
             for dtype in DTYPES:
                 a, b = a32.to(dtype), b32.to(dtype)
                 dt = "f32" if dtype == torch.float32 else "bf16"
-                for blk in (8, 16):
+                for blk in (3, 8, 16):
                     for form in FORMS:
                         for loader in loaders(form):
                             kw = dict(form=form, blk=blk, loader=loader)
@@ -1697,6 +1705,23 @@ class Smoke:
                                          f"{tag} {dt} blk={blk} "
                                          f"{form}[{loader}]")
                 del a, b
+        # the tensor-map cache: two pairs of one shape each get their own
+        # maps, the first pair's maps are found again, and a pair allocated
+        # where a freed one lay gets the right result
+        pairs = [tuple(self.rand(rng, (64, 32, 128)) for _ in range(2))
+                 for _ in range(2)]
+        for i in (0, 1, 0):
+            a, b = pairs[i]
+            for form in FORMS:
+                kw = dict(form=form, blk=16, loader="tma")
+                self.compare("dma_stream", dma_stream(a, b, **kw),
+                             dma_stream_plain(a, b, **kw),
+                             f"map cache: pair {i} {form}[tma]")
+        del pairs, a, b
+        a, b = (self.rand(rng, (64, 32, 128)) for _ in range(2))
+        self.compare("dma_stream", dma_stream(a, b, form="copy2", blk=16),
+                     a + b, "map cache: a new pair", ref="a + b")
+        del a, b
         n = x.numel()
         self.time_pair("dma_stream",
                        lambda: dma_stream(x, y, form="copy2", blk=16),
@@ -1723,7 +1748,36 @@ class Smoke:
                 name = "transpose" if nm == "major_slice_T" else \
                     "strided_copy"
                 self.compare(name, fn(a), plains[nm](a), f"{nm} {shape}")
+        # the strided copy's three paths and every way a view merges or
+        # falls back to one element a thread
         a = self.rand(rng, (258, 16, 128))
+        wide = self.rand(rng, (258, 258, 256))
+        views = (
+            ("store_strided", a, 2.0, "flat4"),
+            ("swap01", a.transpose(0, 1), 1.0, "rows4"),
+            ("strided_row", a[:, 3, :], 1.0, "rows4"),
+            ("a[:, 1:3] (rank 2)", a[:, 1:3, :], 1.0, "rows4"),
+            ("expand (stride 0)", a[0, 0].expand(8, 128), 1.0, "rows4"),
+            ("ragged x a[..., :127]", a[..., :127], 2.0, "rows"),
+            ("misaligned a[..., 1:] of 129",
+             self.rand(rng, (40, 9, 129))[..., 1:], 2.0, "rows"),
+            ("odd stride a[..., ::2]", a[..., ::2], 1.0, "rows"),
+            ("misaligned run", a.reshape(-1)[1:4097], 2.0, "rows"),
+            ("ragged run (13, 7, 5)", self.rand(rng, (13, 7, 5)), 2.0,
+             "rows"),
+            ("swap02", a[:8, :, :12].transpose(0, 2), 1.0, "rows"),
+            ("i0 past the grid's z (70000, 2, 3)",
+             self.rand(rng, (70000, 3, 5))[:, ::2, ::2], 1.0, "rows"),
+            ("swap01 (258, 258, 256)", wide.transpose(0, 1), 1.0, "rows4"),
+            ("store_strided (258, 258, 256)", wide, 2.0, "flat4"),
+        )
+        for label, v, scale, path in views:
+            got = copy_path(v)
+            self.check(got == path, f"strided_copy {label}: path {got}, "
+                       f"expected {path}")
+            self.compare("strided_copy", strided_copy(v, scale),
+                         strided_copy_plain(v, scale), f"[{path}] {label}")
+        del views, wide
         self.time_pair("strided_copy",
                        lambda: strided_copy(a.transpose(0, 1)),
                        lambda: strided_copy_plain(a.transpose(0, 1)), 50,
@@ -1731,6 +1785,11 @@ class Smoke:
         self.bound("strided_copy", (a, a), 0)
         self.kern["strided_copy"]["library_ms"] = self.event_ms(
             lambda: a.transpose(0, 1).contiguous(), 50)
+        ms = self.event_ms(lambda: strided_copy(a, 2.0), 50)
+        lib = self.event_ms(lambda: a * 2.0, 50)
+        print(f"   strided_copy   store_strided (258, 16, 128): kernel "
+              f"{ms:.4f} ms, a * 2 {lib:.4f} ms per call (events; the "
+              f"probe3 rows below are graph replays)", flush=True)
 
         # the boundary rows: each pass against its plain version, the y
         # pass by transposes against K3's direct y pass

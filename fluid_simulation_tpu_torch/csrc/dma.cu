@@ -1,6 +1,6 @@
-// The DMA-issue probe's kernel: one z-blocked windowed stream over a
-// (D, H, W) f32 or bf16 array, o = a + b or o = (a + b) + (alo[0] + ahi[0]),
-// with two loaders: per-thread vector loads or TMA boxes.
+// The DMA-issue probe's kernels: z-blocked windowed streams over a (D, H, W)
+// f32 or bf16 array, o = a + b or o = (a + b) + (alo[0] + ahi[0]), with two
+// loaders: per-thread vector loads or TMA boxes.
 //
 // Replaces the kernel bodies of tools/exp_dma.py (ROADMAP B23), which
 // stream z-blocks of `blk` planes through VMEM with hb = 2 halo planes:
@@ -14,40 +14,63 @@
 //     clip(k*blk - hb, 0, D - E), double-buffered with make_async_copy
 //     (D % blk == 0 only).
 // The TPU question was whether time follows DMA issues or bytes. On Hopper
-// it is per-thread loads against the Tensor Memory Accelerator (TMA):
-//   - ldg (copy2, copy2h): a block of 32 x 8 threads owns a tile of
-//     32*VEC x 8 (x, y) cells of one z-block; each thread streams one
-//     16-byte vector (VEC = 4 f32 or 8 bf16) per plane where W allows it,
-//     else one element (the ragged test shapes). The window planes that no
-//     output reads (a's planes 1..hb-1, all of b's) are loaded with
-//     ld.volatile, which the compiler may not delete, so the kernel moves
-//     the bytes the JAX tool counts, as csrc/hbm.cu does;
-//   - tma (copy2, copy2h): a block of 128 threads owns a tile of 256 bytes
-//     x 8 rows (64 f32 or 128 bf16 columns) of one z-block. One thread
-//     issues one cp.async.bulk.tensor box per window per operand (2 for
-//     copy2, 6 for copy2h) into shared memory, all completing on one
+// it is per-thread loads against the Tensor Memory Accelerator (TMA).
+//
+// copy2, the form that one PyTorch call (torch.add) also computes, is a
+// stream at the card's bytes ceiling. Its two kernels cut each z-block of
+// each (x, y) tile into plane groups (never across a z-block's end) and
+// number these work items with the tile fastest, so the blocks in flight
+// at once cover neighbouring tiles of one plane group. A block takes one
+// item, and the grid has one block an item (kernels/dma.py::copy2_items):
+// the block scheduler hands out short blocks as SMs free up, which keeps
+// every SM busy to the end. A persistent grid of SMs x resident blocks,
+// each walking its items through a 4-stage TMA ring, ran 3-12 % slower in
+// every loader, type and blk on the H100 and was taken out (PERF.md §6,
+// K17-dma). So copy2's work is the same at every blk:
+//   - copy2_ldg_kernel: 32 x 8 threads over a tile of 32*VEC x 8 cells
+//     (VEC = 4 f32 or 8 bf16 where W allows, else 1); an item is 4 planes,
+//     and each thread issues its 8 16-byte loads (4 planes of both
+//     operands) before the first add, then 4 16-byte stores;
+//   - copy2_tma_kernel: 128 threads over a tile of 256 bytes x 8 rows; an
+//     item is one plane: thread 0 issues one cp.async.bulk.tensor box per
+//     operand on one mbarrier, and each thread adds one 16-byte vector of
+//     each. 4 KB of shared memory a block, so the 16 blocks of 128 threads
+//     an SM may hold all fit. The output goes out as 16-byte vector stores
+//     from registers: a warp's 32 stores fill 512 contiguous bytes (two
+//     whole tile rows), so the store path is already coalesced, and a TMA
+//     store would add a staging tile and a bulk-group wait.
+// copy2h and manual2 keep one z-block's windows a block:
+//   - copy2h_ldg_kernel: as copy2's ldg tile, one z-block a block, every
+//     plane walked in turn. The window planes that no output reads (a's
+//     planes 1..hb-1, all of b's) are loaded with ld.volatile, which the
+//     compiler may not delete, so the kernel moves the bytes the JAX tool
+//     counts, as csrc/hbm.cu does;
+//   - copy2h_tma_kernel: one box per window per operand (6) on one
 //     mbarrier whose expected bytes are the full boxes, clipped or not
 //     (TMA fills the part outside the array with zeros and counts it);
-//     then every thread reads one 16-byte vector a plane and stores the
-//     result with plain stores;
-//   - manual2 (tma only): the block walks `walk` consecutive z-blocks of
-//     its tile, two slots of one merged box per operand each, the next
-//     z-block's boxes issued before the current one is waited for: the
-//     counterpart of the slot/semaphore ring. A __syncthreads at the end of
-//     each z-block frees the slot that the next issue overwrites.
-// The tensor maps are encoded on the host for the call's pointers (the
-// driver's cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, so the link needs no libcuda) and passed as
-// __grid_constant__ kernel parameters, so a captured CUDA graph replays
-// them. TMA needs 16-byte global strides and a 16-byte-aligned base: W a
-// multiple of 4 in f32 and of 8 in bf16; the wrapper refuses the rest.
+//     then every thread reads one 16-byte vector a plane;
+//   - manual2_kernel (tma only): the block walks `walk` consecutive
+//     z-blocks of its tile, two slots of one merged box per operand each,
+//     the next z-block's boxes issued before the current one is waited
+//     for: the counterpart of the slot/semaphore ring. A __syncthreads at
+//     the end of each z-block frees the slot that the next issue
+//     overwrites.
+// The tensor maps are encoded on the host (fst_dma_encode: the driver's
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// link needs no libcuda) once per (pointer, shape, type, box) and kept by
+// the wrapper, which passes them to each launch; they go to the kernels as
+// __grid_constant__ parameters, so a captured CUDA graph replays them. The
+// shared-memory attribute that copy2h's and manual2's boxes need is set
+// once per kernel and device. TMA needs 16-byte global strides and a
+// 16-byte-aligned base: W a multiple of 4 in f32 and of 8 in bf16; the
+// wrapper refuses the rest.
 //
 // What bounds it on the H100: bytes. It does one to three adds a cell, so
 // it times the card's streaming rate for this window pattern and loader;
 // the halo planes are re-reads of neighbouring z-blocks, which the 50 MB L2
-// may serve. Shared memory per block: 2 x blk planes of 2 KB (copy2), 2 x
-// (blk + 2hb) (copy2h), 2 slots x 2 x (blk + 2hb) (manual2: 160 KB at blk
-// 16), under the 227 KB a block may take.
+// may serve. Shared memory per block: copy2 4 KB whatever blk is; 2 x
+// (blk + 2hb) planes of 2 KB (copy2h); 2 slots x 2 x (blk + 2hb) (manual2:
+// 160 KB at blk 16), under the 227 KB a block may take.
 //
 // Numerics: each add is one __fadd_rn in f32, rounded to bf16 with
 // __float2bfloat16_rn where the type is bf16: torch's own bf16 add (upcast,
@@ -59,6 +82,7 @@
 
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
 
 #include "common.cuh"
 
@@ -69,6 +93,9 @@ constexpr int kRows = 8;        // rows of a TMA tile
 constexpr int kPlaneBytes = kRowBytes * kRows;
 constexpr int kTmaThreads = kPlaneBytes / 16;  // one 16-byte vector a plane
 constexpr int kLdgX = 32, kLdgY = 8;
+constexpr int kLdgPlanes = 4;  // planes of an ldg copy2 item
+constexpr int kGroup = 1;      // planes of a TMA copy2 item
+constexpr int kMaxDevices = 64;
 // 227 KB, the most a block may take, static shared memory included
 constexpr int kMaxSmem = 232448 - 64;
 
@@ -137,12 +164,64 @@ __device__ __forceinline__ int window_hi(int k, int blk, int hb, int D) {
   return hb * min(k * r + r, nhb - 1);
 }
 
+// copy2's work items: plane groups of `group` planes of each z-block of
+// each (tx x ty) tile, numbered with the tile fastest, then the group, then
+// the z-block (kernels/dma.py::copy2_items counts them the same way).
+struct Items {
+  int D, blk, group, tx, ty, tiles_x, tiles, groups, total;
+  __host__ __device__ Items(int D_, int H, int W, int blk_, int group_,
+                            int tx_, int ty_)
+      : D(D_), blk(blk_), group(group_), tx(tx_), ty(ty_) {
+    tiles_x = (W + tx - 1) / tx;
+    tiles = tiles_x * ((H + ty - 1) / ty);
+    groups = (blk + group - 1) / group;
+    total = tiles * ((D + blk - 1) / blk) * groups;
+  }
+  // item q's tile corner (x0, y0), first plane z0 and planes n (<= 0 for a
+  // group past the array's last plane)
+  __device__ void at(int q, int& x0, int& y0, int& z0, int& n) const {
+    const int tile = q % tiles, zg = q / tiles;
+    const int zb = zg / groups, g = zg - zb * groups;
+    x0 = (tile % tiles_x) * tx;
+    y0 = (tile / tiles_x) * ty;
+    z0 = zb * blk + g * group;
+    n = min(min(group, blk - g * group), D - z0);
+  }
+};
+
 // ---- ldg: per-thread vector loads ------------------------------------
 
-template <typename T, int VEC, bool HALO>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kLdgX* kLdgY)
-    dma_ldg_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                   T* __restrict__ o, int D, int H, int W, int blk, int hb) {
+    copy2_ldg_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                     T* __restrict__ o, int D, int H, int W, int blk) {
+  using P = Pack<T, VEC>;
+  const Items it(D, H, W, blk, kLdgPlanes, kLdgX * VEC, kLdgY);
+  int x0, y0, z0, n;
+  it.at(blockIdx.x, x0, y0, z0, n);
+  const int x = x0 + threadIdx.x * VEC, y = y0 + threadIdx.y;
+  if (x >= W || y >= H || n <= 0) return;
+  const long plane = static_cast<long>(H) * W;
+  const long off = z0 * plane + static_cast<long>(y) * W + x;
+  P va[kLdgPlanes], vb[kLdgPlanes];
+#pragma unroll
+  for (int p = 0; p < kLdgPlanes; ++p)
+    if (p < n) {
+      va[p] = *reinterpret_cast<const P*>(a + off + p * plane);
+      vb[p] = *reinterpret_cast<const P*>(b + off + p * plane);
+    }
+#pragma unroll
+  for (int p = 0; p < kLdgPlanes; ++p)
+    if (p < n)
+      *reinterpret_cast<P*>(o + off + p * plane) = add(va[p], vb[p]);
+}
+
+// copy2h: one z-block a block, a thread's column of the tile plane by plane
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kLdgX* kLdgY)
+    copy2h_ldg_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      T* __restrict__ o, int D, int H, int W, int blk,
+                      int hb) {
   using P = Pack<T, VEC>;
   const int x = (blockIdx.x * kLdgX + threadIdx.x) * VEC;
   const int y = blockIdx.y * kLdgY + threadIdx.y;
@@ -155,25 +234,20 @@ __global__ void __launch_bounds__(kLdgX* kLdgY)
     return reinterpret_cast<const P*>(base + z * plane + off);
   };
 
-  P lohi;
-  if (HALO) {
-    const int zl = window_lo(k, blk, hb), zh = window_hi(k, blk, hb, D);
-    for (int w = 0; w < 2; ++w) {
-      const int zw = w ? zh : zl;
-      const int ze = min(zw + hb, D);
-      for (int z = zw; z < ze; ++z) {
-        if (z > zw) touch<sizeof(P)>(at(a, z));
-        touch<sizeof(P)>(at(b, z));
-      }
+  const int zl = window_lo(k, blk, hb), zh = window_hi(k, blk, hb, D);
+  for (int w = 0; w < 2; ++w) {
+    const int zw = w ? zh : zl;
+    const int ze = min(zw + hb, D);
+    for (int z = zw; z < ze; ++z) {
+      if (z > zw) touch<sizeof(P)>(at(a, z));
+      touch<sizeof(P)>(at(b, z));
     }
-    lohi = add(*at(a, zl), *at(a, zh));
   }
+  const P lohi = add(*at(a, zl), *at(a, zh));
 #pragma unroll 4
-  for (int z = z0; z < z1; ++z) {
-    P v = add(*at(a, z), *at(b, z));
-    if (HALO) v = add(v, lohi);
-    *reinterpret_cast<P*>(o + z * plane + off) = v;
-  }
+  for (int z = z0; z < z1; ++z)
+    *reinterpret_cast<P*>(o + z * plane + off) =
+        add(add(*at(a, z), *at(b, z)), lohi);
 }
 
 // ---- tma: boxes into shared memory, completing on an mbarrier --------
@@ -248,15 +322,47 @@ __device__ __forceinline__ const Pack<T, 16 / sizeof(T)>& plane_at(
       box + p * kPlaneBytes + t.r * kRowBytes + t.c * sizeof(T));
 }
 
-// copy2 / copy2h, one z-block per block. Shared: a_mid, b_mid (blk planes
-// each), then for copy2h a_lo, a_hi, b_lo, b_hi (hb planes each).
-template <typename T, bool HALO>
+// copy2: the block's item, a's box at 0 and b's at kBox, kGroup planes each.
+template <typename T>
 __global__ void __launch_bounds__(kTmaThreads)
-    dma_tma_kernel(const __grid_constant__ CUtensorMap am,
-                   const __grid_constant__ CUtensorMap ah,
-                   const __grid_constant__ CUtensorMap bm,
-                   const __grid_constant__ CUtensorMap bh, T* __restrict__ o,
-                   int D, int H, int W, int blk, int hb) {
+    copy2_tma_kernel(const __grid_constant__ CUtensorMap am,
+                     const __grid_constant__ CUtensorMap bm,
+                     T* __restrict__ o, int D, int H, int W, int blk) {
+  using P = Pack<T, 16 / sizeof(T)>;
+  constexpr int kBox = kGroup * kPlaneBytes;
+  __shared__ __align__(128) unsigned char sa[2 * kBox];
+  __shared__ uint64_t bar;
+  const Items it(D, H, W, blk, kGroup, kRowBytes / sizeof(T), kRows);
+  int x0, y0, z0, n;
+  it.at(blockIdx.x, x0, y0, z0, n);
+  if (n <= 0) return;  // a group past the array's last plane
+  if (threadIdx.x == 0) {
+    bar_init(&bar);
+    bar_expect(&bar, 2 * kBox);
+    tma_box(sa, &am, x0, y0, z0, &bar);
+    tma_box(sa + kBox, &bm, x0, y0, z0, &bar);
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  const TileLane t(x0, y0, H, W, o);
+  bar_wait(&bar, 0);
+  if (!t.live) return;
+  const long plane = static_cast<long>(H) * W;
+  T* dst = o + z0 * plane + static_cast<long>(t.y) * W + t.x;
+  for (int p = 0; p < n; ++p)
+    *reinterpret_cast<P*>(dst + p * plane) =
+        add(plane_at<T>(sa, p, t), plane_at<T>(sa + kBox, p, t));
+}
+
+// copy2h, one z-block per block. Shared: a_mid, b_mid (blk planes each),
+// then a_lo, a_hi, b_lo, b_hi (hb planes each).
+template <typename T>
+__global__ void __launch_bounds__(kTmaThreads)
+    copy2h_tma_kernel(const __grid_constant__ CUtensorMap am,
+                      const __grid_constant__ CUtensorMap ah,
+                      const __grid_constant__ CUtensorMap bm,
+                      const __grid_constant__ CUtensorMap bh,
+                      T* __restrict__ o, int D, int H, int W, int blk,
+                      int hb) {
   using P = Pack<T, 16 / sizeof(T)>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bar;
@@ -270,42 +376,34 @@ __global__ void __launch_bounds__(kTmaThreads)
   if (threadIdx.x == 0) bar_init(&bar);
   __syncthreads();
   if (threadIdx.x == 0) {
-    const int planes = 2 * blk + (HALO ? 4 * hb : 0);
-    bar_expect(&bar, planes * kPlaneBytes);
+    const int hp = hb * kPlaneBytes;
+    bar_expect(&bar, (2 * blk + 4 * hb) * kPlaneBytes);
     tma_box(sa, &am, x0, y0, z0, &bar);
     tma_box(sb, &bm, x0, y0, z0, &bar);
-    if (HALO) {
-      const int hp = hb * kPlaneBytes;
-      tma_box(halo, &ah, x0, y0, zl, &bar);
-      tma_box(halo + hp, &ah, x0, y0, zh, &bar);
-      tma_box(halo + 2 * hp, &bh, x0, y0, zl, &bar);
-      tma_box(halo + 3 * hp, &bh, x0, y0, zh, &bar);
-    }
+    tma_box(halo, &ah, x0, y0, zl, &bar);
+    tma_box(halo + hp, &ah, x0, y0, zh, &bar);
+    tma_box(halo + 2 * hp, &bh, x0, y0, zl, &bar);
+    tma_box(halo + 3 * hp, &bh, x0, y0, zh, &bar);
   }
   bar_wait(&bar, 0);
   const TileLane t(x0, y0, H, W, o);
   if (!t.live) return;
-  P lohi;
-  if (HALO)
-    lohi = add(plane_at<T>(halo, 0, t), plane_at<T>(halo, hb, t));
+  const P lohi = add(plane_at<T>(halo, 0, t), plane_at<T>(halo, hb, t));
   const long plane = static_cast<long>(H) * W;
   const int n = min(blk, D - z0);
-  for (int p = 0; p < n; ++p) {
-    P v = add(plane_at<T>(sa, p, t), plane_at<T>(sb, p, t));
-    if (HALO) v = add(v, lohi);
+  for (int p = 0; p < n; ++p)
     *reinterpret_cast<P*>(o + (z0 + p) * plane + static_cast<long>(t.y) * W +
-                          t.x) = v;
-  }
+                          t.x) =
+        add(add(plane_at<T>(sa, p, t), plane_at<T>(sb, p, t)), lohi);
 }
 
 // manual2: the block walks z-blocks [kb, kb + walk) of its tile; slot s
 // holds a's and b's merged (blk + 2hb)-plane boxes.
 template <typename T>
 __global__ void __launch_bounds__(kTmaThreads)
-    dma_manual_kernel(const __grid_constant__ CUtensorMap ae,
-                      const __grid_constant__ CUtensorMap be,
-                      T* __restrict__ o, int D, int H, int W, int blk, int hb,
-                      int walk) {
+    manual2_kernel(const __grid_constant__ CUtensorMap ae,
+                   const __grid_constant__ CUtensorMap be, T* __restrict__ o,
+                   int D, int H, int W, int blk, int hb, int walk) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bar[2];
   const int E = blk + 2 * hb;
@@ -373,13 +471,112 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D map of the (D, H, W) array at `base`, boxes of `planes` x 8 rows x
-// 256 bytes; 0 or a CUDA error code.
-int encode(CUtensorMap* map, const void* base, bool bf16, int D, int H, int W,
-           int planes) {
+// Dynamic shared memory of a block, alignment slack included (copy2's
+// two boxes are static).
+int copy2h_tma_smem(int blk, int hb) {
+  return (2 * blk + 4 * hb) * kPlaneBytes + 128;
+}
+int manual2_smem(int blk, int hb) {
+  return 4 * (blk + 2 * hb) * kPlaneBytes + 128;
+}
+
+// Lets `Kernel` take up to kMaxSmem of dynamic shared memory (over the 48
+// KB a launch gets by default), once per kernel and device; 0 or a CUDA
+// error code.
+template <auto Kernel>
+int allow_smem() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < kMaxDevices && done[dev]) return 0;
+  e = cudaFuncSetAttribute(Kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return static_cast<int>(e);
+}
+
+// copy2's work items on a (D, H, W) array of `es`-byte elements: the
+// blocks of its grid
+int copy2_items(int D, int H, int W, int blk, int tma, int vec, int es) {
+  return tma ? Items(D, H, W, blk, kGroup, kRowBytes / es, kRows).total
+             : Items(D, H, W, blk, kLdgPlanes, kLdgX * vec, kLdgY).total;
+}
+
+CUtensorMap map_from(const void* p) {
+  CUtensorMap m;
+  memcpy(&m, p, sizeof m);
+  return m;
+}
+
+template <typename T>
+int launch(const void* a, const void* b, void* o, const void* const* maps,
+           int D, int H, int W, int form, int tma, int blk, int hb, int walk,
+           int vec, int grid, cudaStream_t s) {
+  const auto* at = static_cast<const T*>(a);
+  const auto* bt = static_cast<const T*>(b);
+  auto* ot = static_cast<T*>(o);
+  constexpr int V = 16 / sizeof(T);
+  if (!tma) {
+    const dim3 block(kLdgX, kLdgY);
+    if (form == kCopy2) {
+      if (vec == V)
+        copy2_ldg_kernel<T, V><<<grid, block, 0, s>>>(at, bt, ot, D, H, W,
+                                                      blk);
+      else
+        copy2_ldg_kernel<T, 1><<<grid, block, 0, s>>>(at, bt, ot, D, H, W,
+                                                      blk);
+      return fst::launch_status();
+    }
+    const int cols = vec == V ? W / V : W;
+    const dim3 g(fst::cdiv(cols, kLdgX), fst::cdiv(H, kLdgY),
+                 fst::cdiv(D, blk));
+    if (vec == V)
+      copy2h_ldg_kernel<T, V><<<g, block, 0, s>>>(at, bt, ot, D, H, W, blk,
+                                                  hb);
+    else
+      copy2h_ldg_kernel<T, 1><<<g, block, 0, s>>>(at, bt, ot, D, H, W, blk,
+                                                  hb);
+    return fst::launch_status();
+  }
+  const int tx = kRowBytes / sizeof(T);
+  const CUtensorMap am = map_from(maps[0]), bm = map_from(maps[2]);
+  int rc = 0;
+  if (form == kCopy2) {
+    copy2_tma_kernel<T><<<grid, kTmaThreads, 0, s>>>(am, bm, ot, D, H, W,
+                                                     blk);
+  } else if (form == kCopy2h) {
+    const CUtensorMap ah = map_from(maps[1]), bh = map_from(maps[3]);
+    if ((rc = allow_smem<copy2h_tma_kernel<T>>())) return rc;
+    const dim3 g(fst::cdiv(W, tx), fst::cdiv(H, kRows), fst::cdiv(D, blk));
+    copy2h_tma_kernel<T><<<g, kTmaThreads, copy2h_tma_smem(blk, hb), s>>>(
+        am, ah, bm, bh, ot, D, H, W, blk, hb);
+  } else {
+    if ((rc = allow_smem<manual2_kernel<T>>())) return rc;
+    const dim3 g(fst::cdiv(W, tx), fst::cdiv(H, kRows),
+                 fst::cdiv(D / blk, walk));
+    manual2_kernel<T><<<g, kTmaThreads, manual2_smem(blk, hb), s>>>(
+        am, bm, ot, D, H, W, blk, hb, walk);
+  }
+  return fst::launch_status();
+}
+
+}  // namespace
+
+extern "C" {
+
+// A 3-D tensor map of the (D, H, W) array at `base` (bf16 or f32), boxes of
+// `planes` x 8 rows x 256 bytes, into the sizeof(CUtensorMap) = 128 bytes
+// at `map`; 0 or a CUDA error code.
+int fst_dma_encode(void* map, const void* base, int bf16, int D, int H,
+                   int W, int planes) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t es = bf16 ? 2 : 4;
+  if (D < 1 || H < 1 || W < 1 || planes < 1 || planes > 256 ||
+      W * es % 16 || reinterpret_cast<uintptr_t>(base) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(D)};
@@ -387,8 +584,9 @@ int encode(CUtensorMap* map, const void* base, bool bf16, int D, int H, int W,
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(kRowBytes / es), kRows,
                              static_cast<cuuint32_t>(planes)};
   const cuuint32_t estr[3] = {1, 1, 1};
+  CUtensorMap m;
   const CUresult r =
-      fn(map,
+      fn(&m,
          bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
          3, const_cast<void*>(base), dims, strides, box, estr,
@@ -400,113 +598,43 @@ int encode(CUtensorMap* map, const void* base, bool bf16, int D, int H, int W,
             static_cast<int>(r));
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  memcpy(map, &m, sizeof m);
   return 0;
 }
-
-// Lets `kernel` take `bytes` of dynamic shared memory (over the 48 KB a
-// launch gets by default); 0 or a CUDA error code.
-template <typename K>
-int allow_smem(K kernel, int bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-template <typename T>
-int launch(const void* a, const void* b, void* o, int D, int H, int W,
-           int form, int tma, int blk, int hb, int walk, int vec,
-           cudaStream_t s) {
-  const auto* at = static_cast<const T*>(a);
-  const auto* bt = static_cast<const T*>(b);
-  auto* ot = static_cast<T*>(o);
-  const bool halo = form == kCopy2h;
-  if (!tma) {
-    constexpr int V = 16 / sizeof(T);
-    const int cols = vec == V ? W / V : W;
-    const dim3 grid(fst::cdiv(cols, kLdgX), fst::cdiv(H, kLdgY),
-                    fst::cdiv(D, blk));
-    const dim3 block(kLdgX, kLdgY);
-    if (vec == V) {
-      if (halo)
-        dma_ldg_kernel<T, V, true><<<grid, block, 0, s>>>(at, bt, ot, D, H, W,
-                                                          blk, hb);
-      else
-        dma_ldg_kernel<T, V, false><<<grid, block, 0, s>>>(at, bt, ot, D, H,
-                                                           W, blk, hb);
-    } else {
-      if (halo)
-        dma_ldg_kernel<T, 1, true><<<grid, block, 0, s>>>(at, bt, ot, D, H, W,
-                                                          blk, hb);
-      else
-        dma_ldg_kernel<T, 1, false><<<grid, block, 0, s>>>(at, bt, ot, D, H,
-                                                           W, blk, hb);
-    }
-    return fst::launch_status();
-  }
-  const bool bf16 = sizeof(T) == 2;
-  const int tx = kRowBytes / sizeof(T);
-  CUtensorMap am, ah, bm, bh;
-  if (form == kManual2) {
-    const int E = blk + 2 * hb;
-    int rc = encode(&am, a, bf16, D, H, W, E);
-    if (!rc) rc = encode(&bm, b, bf16, D, H, W, E);
-    if (rc) return rc;
-    const int nblk = D / blk;
-    const dim3 grid(fst::cdiv(W, tx), fst::cdiv(H, kRows),
-                    fst::cdiv(nblk, walk));
-    const int smem = 4 * E * kPlaneBytes + 128;
-    if ((rc = allow_smem(dma_manual_kernel<T>, smem))) return rc;
-    dma_manual_kernel<T><<<grid, kTmaThreads, smem, s>>>(am, bm, ot, D, H, W,
-                                                         blk, hb, walk);
-    return fst::launch_status();
-  }
-  int rc = encode(&am, a, bf16, D, H, W, blk);
-  if (!rc) rc = encode(&bm, b, bf16, D, H, W, blk);
-  if (!rc && halo) rc = encode(&ah, a, bf16, D, H, W, hb);
-  if (!rc && halo) rc = encode(&bh, b, bf16, D, H, W, hb);
-  if (rc) return rc;
-  const dim3 grid(fst::cdiv(W, tx), fst::cdiv(H, kRows), fst::cdiv(D, blk));
-  const int smem = (2 * blk + (halo ? 4 * hb : 0)) * kPlaneBytes + 128;
-  if (halo) {
-    if ((rc = allow_smem(dma_tma_kernel<T, true>, smem))) return rc;
-    dma_tma_kernel<T, true><<<grid, kTmaThreads, smem, s>>>(am, ah, bm, bh, ot,
-                                                            D, H, W, blk, hb);
-  } else {
-    if ((rc = allow_smem(dma_tma_kernel<T, false>, smem))) return rc;
-    dma_tma_kernel<T, false><<<grid, kTmaThreads, smem, s>>>(
-        am, am, bm, bm, ot, D, H, W, blk, hb);
-  }
-  return fst::launch_status();
-}
-
-}  // namespace
-
-extern "C" {
 
 // o = the form's stream of a and b over z-blocks of blk planes: form 0
 // copy2, 1 copy2h (halo windows of hb planes, hb dividing blk), 2 manual2
 // (TMA only, D % blk == 0, D >= blk + 2hb, `walk` z-blocks a block). `tma`
 // picks the loader; vec is the ldg loader's elements per thread (16 bytes'
-// worth or 1). bf16 selects the element type (else f32). Refuses other
-// combinations with cudaErrorInvalidValue.
-int fst_dma_stream(const void* a, const void* b, void* o, int D, int H,
-                   int W, int bf16, int form, int tma, int blk, int hb,
-                   int walk, int vec, void* stream) {
+// worth or 1). With TMA, maps[0..3] are fst_dma_encode's maps of a's mid
+// window, a's halo window, b's mid and b's halo (boxes of kGroup planes for
+// copy2, blk and hb for copy2h, blk + 2hb for manual2; the halo ones only
+// for copy2h). `grid`: copy2's blocks, one a work item (Items::total).
+// bf16 selects the element type (else f32). Refuses other combinations
+// with cudaErrorInvalidValue.
+int fst_dma_stream(const void* a, const void* b, void* o, const void* am,
+                   const void* ah, const void* bm, const void* bh, int D,
+                   int H, int W, int bf16, int form, int tma, int blk, int hb,
+                   int walk, int vec, int grid, void* stream) {
   const int es = bf16 ? 2 : 4;
   const int E = blk + 2 * hb;
+  const void* const maps[4] = {am, ah, bm, bh};
   if (D < 1 || H < 1 || W < 1 || blk < 1 || form < kCopy2 ||
       form > kManual2 || (form != kCopy2 && (hb < 1 || blk % hb)) ||
       (form == kManual2 && (!tma || D % blk || D < E || walk < 1)) ||
-      (tma && (W * es % 16 ||
-               (form == kManual2 ? 4 * E : 2 * blk + 4 * hb) * kPlaneBytes +
-                       128 >
-                   kMaxSmem)) ||
+      (tma && (W * es % 16 || !am || !bm ||
+               (form == kCopy2h && (!ah || !bh)) ||
+               (form == kCopy2h && copy2h_tma_smem(blk, hb) > kMaxSmem) ||
+               (form == kManual2 && manual2_smem(blk, hb) > kMaxSmem))) ||
       (!tma && vec != 1 && vec != 16 / es) || (!tma && vec > 1 && W % vec))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (form == kCopy2 && grid != copy2_items(D, H, W, blk, tma, vec, es))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(a, b, o, D, H, W, form, tma, blk, hb,
-                                      walk, vec, s)
-              : launch<float>(a, b, o, D, H, W, form, tma, blk, hb, walk, vec,
-                              s);
+  return bf16 ? launch<__nv_bfloat16>(a, b, o, maps, D, H, W, form, tma, blk,
+                                      hb, walk, vec, grid, s)
+              : launch<float>(a, b, o, maps, D, H, W, form, tma, blk, hb,
+                              walk, vec, grid, s);
 }
 
 }  // extern "C"

@@ -89,9 +89,11 @@ SIGNATURES = {
     "fst_hbm_stream": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "fst_sweepcost_pass": (_P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _I,
                            _I, _P),
-    "fst_dma_stream": (_P, _P, _P) + (_I,) * 10 + (_P,),
+    "fst_dma_stream": (_P,) * 7 + (_I,) * 11 + (_P,),
+    "fst_dma_encode": (_P, _P, _I, _I, _I, _I, _I),
     "fst_transpose": (_P, _P, _I, _I, _I, _L, _L, _L, _P),
-    "fst_strided_copy": (_P, _P, _I, _I, _I, _L, _L, _L, _F, _P),
+    "fst_strided_copy": (_P, _P, _I, _I, _I, _L, _L, _L, _F) + (_I,) * 7
+    + (_P,),
     "fst_rbgs_half_mxu": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_lerpcost_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # no-ops with the signatures of fst_probe_add1 and fst_trilinear_gather
@@ -273,6 +275,12 @@ def mask_view(name: str, m: torch.Tensor, shape, device: int):
 
 # a tensor's address as a plain int, which the c_void_p argtypes take
 ptr = torch.Tensor.data_ptr
+
+
+@functools.cache
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device`` (an index)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def neg_mask(signs_per_field) -> int:

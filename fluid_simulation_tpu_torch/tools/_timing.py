@@ -14,6 +14,22 @@ import time
 
 import torch
 
+# the H100's data-sheet HBM rate, against which a bytes bound is taken, and
+# the range of rates csrc/hbm.cu's copy2d stream reached at 256^3 (exp_hbm2,
+# PERF.md K17-hbm). That is one kernel's stream, not the card's ceiling:
+# dma.cu's copy2 streams faster (PERF.md K17-dma).
+HBM_BYTES_PER_S = 3.35e12
+HBM_CU_COPY2D_BYTES_PER_S = (2.79e12, 2.97e12)
+
+
+def rate_shares(nbytes: float, sec: float) -> str:
+    """``nbytes`` moved in ``sec`` as a rate, a share of the bound's rate
+    and a range of shares of hbm.cu's copy2d rate."""
+    rate = nbytes / sec
+    lo, hi = HBM_CU_COPY2D_BYTES_PER_S
+    return (f"{rate / 1e12:.3f} TB/s: {rate / HBM_BYTES_PER_S:.3f} of the "
+            f"bound, {rate / hi:.3f}-{rate / lo:.3f} of hbm.cu's copy2d")
+
 
 def host_timer(fn) -> float:
     """Seconds of ``fn()`` on the host clock."""

@@ -12,7 +12,8 @@ same windows. Rows, in the tool's order (dtype, then blk, then form), each
 ``r = c * 1.5 + 0.25`` (the tool's distinct operands), through
 ``kernels/dma.py``:
 
-- ``copy2[ldg]``, ``copy2[tma]``: ``o = a + b``;
+- ``copy2[ldg]``, ``copy2[tma]``: ``o = a + b``, one work item a block;
+  the items do not depend on blk, so the rows at each blk time one launch;
 - ``copy2h[ldg]``, ``copy2h[tma]``: ``o = (a + b) + (alo[0] + ahi[0])``
   with the lo/mid/hi windows (hb = 2) on both operands;
 - ``manual2[tma]``: ``o = a + b`` from one merged (blk + 2hb)-plane box
@@ -22,9 +23,11 @@ A row's time is JAX's slope: the chains of n and 3n calls are each one
 captured CUDA graph, ``(t(3n) - t(n)) / 2n``, best of 3
 (``tools/_timing.replay_slope``). Each row prints its µs, its plain
 version's and (copy2) ``torch.add``'s, the rate by the tool's byte units
-(3 arrays, or ``3 + 4*hb/blk`` with the windows) and its issues per
-z-block: the tool's DMA issues (3, 7, 3 with the output's) beside this
-kernel's, TMA boxes per block or 16-byte loads per thread.
+(3 arrays, or ``3 + 4*hb/blk`` with the windows) as a share of the bound
+and of ``hbm.cu``'s copy2d stream, and its issues per z-block: the
+tool's DMA issues (3, 7, 3 with the output's) beside this kernel's, TMA
+boxes per tile or 16-byte loads per thread (copy2's per plane, whatever
+blk is).
 
 ``--device cpu`` runs every row's plain version on the host clock at
 whatever ``--shape`` is given (a test runs it tiny); it prints no rate.
@@ -39,8 +42,9 @@ from typing import Callable, List, Optional
 import torch
 
 from fluid_simulation_tpu_torch.kernels.dma import (
-    FORMS, HB, check_form, dma_stream, dma_stream_plain, loaders)
-from fluid_simulation_tpu_torch.tools._timing import clock_line
+    FORMS, HB, LDG_PLANES, check_form, dma_stream, dma_stream_plain,
+    loaders)
+from fluid_simulation_tpu_torch.tools._timing import clock_line, rate_shares
 from fluid_simulation_tpu_torch.tools.exp_hbm import measure
 
 DTYPES = ((torch.float32, ""), (torch.bfloat16, "_bf16"))
@@ -69,11 +73,17 @@ def second_operand(c0: torch.Tensor) -> torch.Tensor:
 
 
 def issues(form: str, loader: str, blk: int, hb: int = HB) -> str:
-    """This kernel's issues per z-block of a tile."""
+    """This kernel's issues per z-block of a tile: copy2h's TMA kernel one
+    box per window per operand, manual2's one merged box per operand, and
+    the ldg loader's 16-byte loads per thread. copy2's kernels issue per
+    plane whatever blk is: one TMA box per operand, or two loads a thread
+    with ``LDG_PLANES`` planes of both operands at once."""
+    if form == "copy2":
+        return ("2 boxes/plane, any blk" if loader == "tma" else
+                f"2 loads/thread/plane, {2 * LDG_PLANES} in flight, any blk")
     if loader == "tma":
-        return f"{2 if form != 'copy2h' else 6} boxes"
-    loads = 2 * blk + (4 * hb if form == "copy2h" else 0)
-    return f"{loads} loads/thread"
+        return f"{ {'copy2h': 6, 'manual2': 2}[form]} boxes"
+    return f"{2 * blk + 4 * hb} loads/thread"
 
 
 def rows(device="cuda", shape=(256, 256, 256), blks=(8, 16)) -> List[Row]:
@@ -105,7 +115,7 @@ def rows(device="cuda", shape=(256, 256, 256), blks=(8, 16)) -> List[Row]:
 
 def format_row(row: Row, sec: float, on_card: bool, plain=None,
                library=None) -> str:
-    head = f"{row.name:20s} blk={row.blk:<3d} {sec * 1e6:11.2f} us"
+    head = f"{row.name:18s} blk={row.blk:<3d} {sec * 1e6:11.2f} us"
     for label, t in (("plain", plain), ("library", library)):
         if t is not None:
             head += f"  {label} {t * 1e6:9.2f} us"
@@ -115,8 +125,7 @@ def format_row(row: Row, sec: float, on_card: bool, plain=None,
     if not on_card:
         return head + "  (host clock; no rate)"
     moved = row.units * row.x0.numel() * row.x0.element_size()
-    return (f"{head}  {moved / sec / 1e9:8.1f} GB/s ({row.units:g} "
-            f"arrays)")
+    return f"{head}  {rate_shares(moved, sec)} ({row.units:g} arrays)"
 
 
 def run(rows_, n: int, device) -> None:

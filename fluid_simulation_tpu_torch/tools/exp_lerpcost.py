@@ -43,13 +43,13 @@ from fluid_simulation_tpu_torch.kernels.advect_split import (
 from fluid_simulation_tpu_torch.kernels.lerpcost import (
     LANES, VARIANTS, lerpcost_pass, lerpcost_pass_plain)
 from fluid_simulation_tpu_torch.tools import exp_hbm
-from fluid_simulation_tpu_torch.tools._timing import clock_line
+from fluid_simulation_tpu_torch.tools._timing import (
+    HBM_BYTES_PER_S, clock_line)
 from fluid_simulation_tpu_torch.tools.exp_transpose import (
     boundary_case, measure_body)
 
 STACK_TOOL, XB_TOOL = 0.5, 77.3     # tools/exp_lerpcost.py:61-62
 BN = 3
-HBM_BYTES_PER_S = 3.35e12
 
 
 @dataclass

@@ -18,7 +18,11 @@ lerp_pass``):
 - ``probe3``: ``swap01`` (Z, Y, X) -> (Y, Z, X), ``strided_row``
   ``a[:, 3, :]``, ``major_slice_T`` ``a[:, 3, :].T`` and ``store_strided``
   ``a * 2`` at (258, 8, 128), (130, 8, 128) and (258, 16, 128), checked
-  exact, each timed alone per call beside its torch form;
+  exact, each timed alone per call beside its torch form, the strided
+  copies with the path they take (``kernels/transpose.copy_plan``); then
+  ``swap01`` and ``store_strided`` on the bytes-bound view (D + 2, H + 2,
+  W) of ``--shape`` (68 MB each way at 256^3), with their rate as a share
+  of the bound (3.35 TB/s) and of ``hbm.cu``'s copy2d stream;
 - ``boundary``: at ``--shape`` (default 256^3), a stack of 3 padded fields
   and one velocity, every pass K3's lerp kernel with the tool's backtrace
   ``clip(i - dtW*v, 0.5, N + 0.5)``, dtW = 0.05*W, v the x velocity on
@@ -47,14 +51,16 @@ import torch
 from fluid_simulation_tpu_torch.kernels.advect_split import (
     lerp_pass, lerp_pass_plain)
 from fluid_simulation_tpu_torch.kernels.transpose import (
-    strided_copy, strided_copy_plain, transpose2d, transpose2d_plain)
-from fluid_simulation_tpu_torch.tools._timing import clock_line
+    copy_path, strided_copy, strided_copy_plain, transpose2d,
+    transpose2d_plain)
+from fluid_simulation_tpu_torch.tools._timing import clock_line, rate_shares
 from fluid_simulation_tpu_torch.tools.exp_hbm import measure
 
 PROBE_SHAPES = [(256, 128), (128, 256), (258, 128), (264, 128), (256, 256),
                 (2048, 128), (128, 2048), (1024, 256)]   # :71-72
 PROBE3_SHAPES = [(258, 8, 128), (130, 8, 128), (258, 16, 128)]   # :192
 ROW = 3   # the strided row of probe3 (:144, :159, :168)
+BOUND_FORMS = ("swap01", "store_strided")   # timed on the bytes-bound view
 
 
 def measure_body(body, n: int, device) -> float:
@@ -96,18 +102,39 @@ def probe(device, n: int) -> None:
               f"{lib * 1e6:9.2f} us", flush=True)
 
 
-def probe3(device, n: int) -> None:
+def probe3_view(name: str, a: torch.Tensor) -> torch.Tensor:
+    """The view that form ``name`` hands its kernel."""
+    return {"swap01": a.transpose(0, 1), "strided_row": a[:, ROW, :],
+            "major_slice_T": a[:, ROW, :], "store_strided": a}[name]
+
+
+def probe3_line(name, shape, a, f, lib, n, device) -> str:
+    exact = torch.equal(f(a), lib(a))
+    t = measure_body(lambda: f(a), n, device)
+    tl = measure_body(lambda: lib(a), n, device)
+    path = ("" if name == "major_slice_T" else
+            f"[{copy_path(probe3_view(name, a))}]")
+    line = (f"{name + path:22s} {str(shape):16s} exact={exact}  "
+            f"{t * 1e6:9.2f} us/call  torch {tl * 1e6:9.2f} us")
+    if torch.device(device).type == "cuda" and name in BOUND_FORMS:
+        line += "  " + rate_shares(2 * a.numel() * a.element_size(), t)
+    return line
+
+
+def probe3(device, n: int, shape=(256, 256, 256)) -> None:
+    """probe3's rows at its shapes, then the bound forms on the padded
+    (D + 2, H + 2, W) view of ``shape`` (W, H, D)."""
     rng = np.random.default_rng(0)
-    for shape in PROBE3_SHAPES:
+    W, H, D = shape
+    for shape3 in PROBE3_SHAPES + [(D + 2, H + 2, W)]:
         for name, f, lib in probe3_forms(kernel=True):
-            a = torch.tensor(rng.standard_normal(shape, np.float32),
+            if shape3 not in PROBE3_SHAPES and name not in BOUND_FORMS:
+                continue
+            a = torch.tensor(rng.standard_normal(shape3, np.float32),
                              device=device)
-            exact = torch.equal(f(a), lib(a))
-            t = measure_body(lambda: f(a), n, device)
-            tl = measure_body(lambda: lib(a), n, device)
-            print(f"{name:14s} {str(shape):15s} exact={exact}  "
-                  f"{t * 1e6:9.2f} us/call  torch {tl * 1e6:9.2f} us",
+            print(probe3_line(name, shape3, a, f, lib, n, device),
                   flush=True)
+            del a
 
 
 def boundary_case(shape, device, seed=0):
@@ -187,7 +214,8 @@ def main(argv=None) -> int:
                     help="calls of the short chain (the long one is 3n)")
     ap.add_argument("--shape", type=int, nargs=3, default=(256, 256, 256),
                     metavar=("W", "H", "D"),
-                    help="boundary: the interior (W, H, D)")
+                    help="boundary and probe3's bytes-bound view: the "
+                         "interior (W, H, D)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     print(f"exp_transpose {args.mode}: "
@@ -195,7 +223,7 @@ def main(argv=None) -> int:
     if args.mode == "probe":
         probe(device, args.n)
     elif args.mode == "probe3":
-        probe3(device, args.n)
+        probe3(device, args.n, tuple(args.shape))
     else:
         boundary(device, args.n, tuple(args.shape))
     return 0

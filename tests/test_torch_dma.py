@@ -172,6 +172,7 @@ def test_bf16_rounds_every_add():
      "float32 and bfloat16"),
     (dict(shape=(48, 8, 16), form="copy2h", blk=9), "divide"),
     (dict(shape=(48, 8, 16), form="manual2", blk=128), "shared memory"),
+    (dict(shape=(48, 8, 16), form="copy2", loader="lds"), "no 'lds'"),
 ])
 def test_refused_forms_raise_on_every_device(kw, match):
     kw = dict(kw)
@@ -211,6 +212,9 @@ def test_probe_rows_compute_their_forms():
     assert torch.equal(rows[0].step(c), c + r)
     assert rows[0].units == 3 and rows[1].units == 3 and \
         rows[2].units == 3 + 4 * HB / 8
+    assert [row.issues for row in rows[:5]] == [
+        "2 loads/thread/plane, 8 in flight, any blk",
+        "2 boxes/plane, any blk", "24 loads/thread", "6 boxes", "2 boxes"]
 
 
 def test_probe_needs_the_card_by_default(monkeypatch):
@@ -251,3 +255,120 @@ def test_every_form_is_one_launch(card, form):
     with pytest.raises(ValueError, match="operands of"):
         dma_stream(c, r.float(), form=form, blk=8)
     assert LAUNCHES["dma_stream"] == len(loaders(form))
+
+
+# ---- copy2's work items and grid, shared memory; the tensor-map cache
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _items(shape, blk, loader, esize):
+    """(tile, first plane, planes) of each copy2 work item in the order
+    dma.cu's ``Items::at`` numbers them."""
+    D, H, W = shape
+    if loader == "tma":
+        tx, ty, group = kdma.TMA_ROW_BYTES // esize, kdma.TMA_ROWS, \
+            kdma.TMA_GROUP
+    else:
+        tx, ty, group = kdma.LDG_TILE[0] * kdma.ldg_vec(W, esize), \
+            kdma.LDG_TILE[1], kdma.LDG_PLANES
+    tiles = _cdiv(W, tx) * _cdiv(H, ty)
+    groups = _cdiv(blk, group)
+    total = tiles * _cdiv(D, blk) * groups
+    for q in range(total):
+        tile, zg = q % tiles, q // tiles
+        zb, g = divmod(zg, groups)
+        z0 = zb * blk + g * group
+        yield tile, z0, min(group, blk - g * group, D - z0)
+
+
+ITEM_CASES = [(shape, blk, loader, dtype)
+              for shape in ((256, 256, 256), (48, 8, 16), (40, 7, 13),
+                            (37, 9, 72), (48, 19, 200))
+              for blk in (3, 8, 16) for loader in kdma.LOADERS
+              for dtype in kdma.DTYPES
+              if loader == "ldg" or shape[2] * dtype.itemsize % 16 == 0]
+
+
+@pytest.mark.parametrize("shape,blk,loader,dtype", ITEM_CASES)
+def test_copy2_items_cover_every_plane_once(shape, blk, loader, dtype):
+    """Each tile's planes are covered once by its items, and no item
+    crosses a z-block's end; ``copy2_items`` counts them all (items past
+    the last plane of a ragged z-block included: they move nothing)."""
+    esize = dtype.itemsize
+    items = list(_items(shape, blk, loader, esize))
+    assert kdma.copy2_items(shape, blk, loader, esize) == len(items)
+    covered = {}
+    for tile, z0, n in items:
+        if n <= 0:
+            continue
+        assert z0 // blk == (z0 + n - 1) // blk
+        for z in range(z0, z0 + n):
+            covered[tile, z] = covered.get((tile, z), 0) + 1
+    tiles = max(t for t, _, _ in items) + 1
+    assert covered == {(t, z): 1 for t in range(tiles)
+                       for z in range(shape[0])}
+
+
+@pytest.mark.parametrize("loader,dtype,want", [
+    ("tma", torch.float32, 32768), ("tma", torch.bfloat16, 16384),
+    ("ldg", torch.float32, 4096), ("ldg", torch.bfloat16, 2048)])
+@pytest.mark.parametrize("blk", [8, 16])
+def test_copy2_items_at_256_cubed(loader, dtype, want, blk):
+    """One item a tile plane (TMA) or a tile's 4 planes (ldg), whatever
+    blk is: the same work at blk 8 and 16."""
+    assert kdma.copy2_items((256, 256, 256), blk, loader,
+                            dtype.itemsize) == want
+
+
+@pytest.mark.parametrize("shape,blk,loader,dtype", ITEM_CASES[::3])
+def test_copy2_launch_has_one_block_an_item(monkeypatch, shape, blk, loader,
+                                            dtype):
+    """The real ``_launch`` (the library call stubbed) gives copy2's
+    kernel a grid of one block a work item, the ldg loader's vector width,
+    and TMA maps of a and b only (one plane deep); the kernel refuses any
+    other grid."""
+    got = {}
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, dev, *args: got.update(args=args))
+    monkeypatch.setattr(kdma, "tensor_map",
+                        lambda t, planes: None if planes is None else
+                        (t.data_ptr(), planes))
+    a, b = (torch.zeros(shape, dtype=dtype) for _ in range(2))
+    out = torch.empty_like(a)
+    kdma._launch(a, b, out, "copy2", blk, loader, HB)
+    maps, rest = got["args"][3:7], got["args"][7:]
+    D, H, W = shape
+    vec = kdma.ldg_vec(W, dtype.itemsize)
+    assert rest == (D, H, W, int(dtype == torch.bfloat16), 0,
+                    int(loader == "tma"), blk, HB, 1, vec,
+                    kdma.copy2_items(shape, blk, loader, dtype.itemsize))
+    want = ([(a.data_ptr(), 1), None, (b.data_ptr(), 1), None]
+            if loader == "tma" else [None] * 4)
+    assert list(maps) == want
+
+
+def test_tma_shared_memory_sizes():
+    """copy2's two one-plane boxes take the same 4 KB whatever blk is, so
+    an SM's 16 blocks of 128 threads fit; copy2h's windows and manual2's
+    slots grow with blk."""
+    boxes = 2 * kdma.TMA_GROUP * 2048 + 128
+    assert {kdma.tma_smem("copy2", blk) for blk in (1, 8, 16, 64)} == {boxes}
+    assert 233472 // (boxes + 1024) >= 2048 // 128
+    assert kdma.tma_smem("copy2h", 16) == (32 + 8) * 2048 + 128
+    assert kdma.tma_smem("manual2", 16) == 4 * 20 * 2048 + 128
+
+
+def test_map_key_differs_for_two_tensors_of_one_shape():
+    a, b = torch.zeros(48, 8, 16), torch.zeros(48, 8, 16)
+    assert kdma.map_key(a, 1) != kdma.map_key(b, 1)
+    assert kdma.map_key(a, 1) == kdma.map_key(a.view(48, 8, 16), 1)
+    assert kdma.map_key(a, 1) != kdma.map_key(a, 2)
+    assert kdma.map_key(a, 1) != kdma.map_key(a.view(48, 16, 8), 1)
+    assert kdma.map_key(a, 1) != kdma.map_key(
+        a.view(torch.bfloat16)[..., :16], 1)
+    assert kdma.map_planes("copy2", 16) == (kdma.TMA_GROUP, None)
+    assert kdma.map_planes("copy2h", 16) == (16, HB)
+    assert kdma.map_planes("manual2", 16) == (16 + 2 * HB, None)
+    assert kdma._encoded.cache_info().maxsize == kdma.MAP_CACHE
