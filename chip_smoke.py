@@ -21,7 +21,11 @@ final ``ok`` line):
    an odd 13x7x10 with random 0/1 solids and no-slip walls (ragged tiles);
    the streamed solve and projection wrappers against their plain versions
    (nsw 2 and 1, an odd acc) and against the resident route (K1, K1 keep,
-   K2 + tail, K6 + tail) for b = 0..3; their times and bounds;
+   K2 + tail, K6 + tail) for b = 0..3; their times and bounds; then the
+   pass kernel's z-march where it can go wrong (``RAGGED``: D 1, 2, 3 and
+   5 under its ring and warm-up, D one past a z-range, H and W under the
+   tile, a grid with face and interior blocks): sweep 1 and the pass at
+   nsw 1 and 2, keep and empty, b = 0..3, both walls, bitwise;
 4. the split flagship: ``WindTunnel(SimParams(mode="split", ...),
    device="cuda").simulate(100)`` — finite, density > 0, divergence
    residual max < 20 and mean < 1 (bench.py's bounds), kernel launch
@@ -44,7 +48,8 @@ final ``ok`` line):
    step prove the streamed route ran (3 streamed solves, 2 streamed
    projections, 2 advections, 4 paddings); the residual bounds; solids
    exactly 0; each sphere's density sum differs from its empty twin's; at
-   256x128x128 one step of the kernel path equals the plain path; ms/step;
+   256x128x128 one step of the kernel path equals the plain path; the
+   density sums exactly (repr), to hold against another tree's; ms/step;
 9. per call at each big shape, both routes of the solve and of the
    projection (resident and streamed, in turns), and K4 / K4 masked
    against their plain versions at 512x256x256 (the shapes of the
@@ -113,9 +118,14 @@ final ``ok`` line):
     ``exp_hbm2``, ``exp_sweepcost``, ``streamcost``): one call each of the
     stream kernel and of a sweep-cost variant with the counts set to 0 just
     before and read just after (1 and 1, nothing else); every form of the
-    stream and every variant at nsw 1 and 2 against its plain version, and
-    ``full`` against the production pass, bitwise, at a ragged 13x7x10 and
-    at 256^3; then the three probes' rows at 256^3, CUDA-graph replays;
+    variant at nsw 1 and 2 against its plain version, and ``full`` against
+    the production pass, bitwise, at a ragged 13x7x10 and at 256^3; all
+    eight of the tools' stream forms (copy1, copy1_blk32, copy2, copy2h,
+    sweepish on one operand; copy2d, copy2hd, arithd on two) bitwise at
+    13x7x10 (one cell a thread), 16x8x40 (16-byte vectors, a ragged last
+    z-block), the same with misaligned operands, and 256^3; then the three
+    probes' rows at 256^3 and ``exp_sweepcost``'s at 512x256x256, CUDA-graph
+    replays;
 20. the DMA-issue, transpose and tensor-core probes (B23's ``exp_dma``,
     ``exp_transpose``, ``exp_solve_mxu``, ``probes_last``): one call each of
     the stream, the transpose, the strided copy, K3's single pass and the
@@ -292,6 +302,12 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
+# (W, H, D) where the pass kernel's z-march can go wrong (csrc/rbgs_tile.cuh:
+# 32 x 16 tiles at nsw 1 and 32 x 32 at nsw 2, 32-plane z-ranges, a ring of
+# 2*nsw + 3 planes): D under the ring and the warm-up, D one past a z-range,
+# H and W under the tile, a grid of tiles with blocks that splice no face
+RAGGED = ((13, 7, 1), (13, 7, 2), (13, 7, 3), (13, 7, 5), (9, 13, 33),
+          (80, 70, 6), (37, 21, 65))
 
 
 def card_line() -> str:
@@ -840,6 +856,43 @@ class Smoke:
                              *vel, m.fluid_i, 15))):
                     self.time_pair(name, kf, pf, 10, shapes)
                 self.stream_bounds(f, g, kv, vel, m.fluid_i, n, True)
+        self.stream_ragged(rng)
+
+    def stream_ragged(self, rng):
+        """Sweep 1 and the pass at nsw 1 and 2, keep (random 0/1 solids)
+        and empty, b = 0..3 and both walls, at each ``RAGGED`` shape:
+        bitwise to their plain versions."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels import linsolve_stream as ls
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        for W, H, D in RAGGED:
+            obs = np.zeros((D + 2, H + 2, W + 2), np.float32)
+            obs[1:-1, 1:-1, 1:-1] = rng.uniform(size=(D, H, W)) < 0.2
+            m = build_masks(obs, device="cuda")
+            err = {"rbgs_solve_stream": 0.0, "rbgs_solve_stream_keep": 0.0}
+            forms = 0
+            for b in range(4):
+                for wall in ("reference", "noslip"):
+                    kv = (m.keep_vel if b else m.keep_scalar)[1:-1, 1:-1,
+                                                              1:-1]
+                    g = self.rand(rng, (D + 2, H + 2, W + 2))
+                    rhs_i = g[1:-1, 1:-1, 1:-1]
+                    fpre = self.rand(rng, (D, H, W))
+                    pairs = [("rbgs_solve_stream", ls.sweep1(g, rhs_i, 0.7,
+                                                            5.2),
+                              ls.sweep1_plain(g, rhs_i, 0.7, 5.2))]
+                    for nsw in ls.KERNEL_NSW:
+                        for name, keep_i in (("rbgs_solve_stream", None),
+                                             ("rbgs_solve_stream_keep", kv)):
+                            pairs.append((name, ls.sweep_pass(
+                                fpre, rhs_i, keep_i, b, 0.7, 5.2, nsw, wall),
+                                ls.pass_plain(fpre, rhs_i, keep_i, b, 0.7,
+                                              5.2, nsw, wall)))
+                    for name, got, want in pairs:
+                        err[name] = max(err[name], self.diff(got, want))
+                    forms += len(pairs)
+            for name, e in err.items():
+                self.record(name, e, f"{W}x{H}x{D} z-march ({forms} forms)")
 
     def stream_bounds(self, f, g, kv, vel, fluid_i, n, record):
         """The streamed wrappers' bounds at one shape: the solves read the
@@ -880,6 +933,8 @@ class Smoke:
                                   pad_bounds=4)
                     self.check_state(wt, label)
                     self.twin_sums[label] = wt.density_sum()
+                print(f"   {label}: density sum after {steps} steps "
+                      f"{wt.density_sum()!r} (exact)", flush=True)
                 if (W, H, D) == (256, 128, 128):
                     self.kernel_vs_plain_steps(wt, 1)
                 ms = self.event_ms(wt.step, steps)
@@ -1569,7 +1624,7 @@ class Smoke:
         from fluid_simulation_tpu_torch.kernels import (
             LAUNCHES, reset_launches)
         from fluid_simulation_tpu_torch.kernels.hbm import (
-            stream_copy, stream_copy_plain)
+            stream_copy, stream_copy_plain, stream_vec)
         from fluid_simulation_tpu_torch.kernels.linsolve_stream import (
             KERNEL_NSW, sweep_pass)
         from fluid_simulation_tpu_torch.kernels.sweepcost import (
@@ -1594,22 +1649,36 @@ class Smoke:
         for name in want:
             self.kern[name]["launches"] = counts[name]
 
-        # the JAX tools' forms: (row name, two inputs, keywords)
-        forms = (("copy1", False, dict(blk=16)),
-                 ("copy1_blk32", False, dict(blk=32)),
-                 ("copy2d", True, dict(blk=16)),
-                 ("copy2hd", True, dict(blk=16, halo=True)),
-                 ("arithd", True, dict(blk=16, halo=True, chain=True)))
+        # the JAX tools' eight forms: (row name, second input: None, the
+        # first again or a distinct array, keywords)
+        halo, chain = dict(blk=16, halo=True), dict(blk=16, halo=True,
+                                                    chain=True)
+        forms = (("copy1", None, dict(blk=16)),
+                 ("copy1_blk32", None, dict(blk=32)),
+                 ("copy2", "same", dict(blk=16)), ("copy2h", "same", halo),
+                 ("sweepish", "same", chain),
+                 ("copy2d", "distinct", dict(blk=16)),
+                 ("copy2hd", "distinct", halo), ("arithd", "distinct", chain))
+        for (D, H, W), skew in (((10, 7, 13), 0), ((40, 8, 16), 0),
+                                ((40, 8, 16), 1), (big, 0)):
+            tag = f"{W}x{H}x{D}" + (" misaligned" if skew else "")
+            n = D * H * W
+            x1 = torch.empty(n + skew, device="cuda")[skew:].view(D, H, W)
+            x2 = torch.empty(n + skew, device="cuda")[skew:].view(D, H, W)
+            x1.copy_(self.rand(rng, (D, H, W)))
+            x2.copy_(self.rand(rng, (D, H, W)))
+            for form, second, kw in forms:
+                y2 = {None: None, "same": x1, "distinct": x2}[second]
+                vec = stream_vec(x1, x1, y2)
+                self.compare("hbm_stream", stream_copy(x1, y2, **kw),
+                             stream_copy_plain(x1, y2, **kw),
+                             f"{tag} {form} vec {vec}")
+            del x1, x2
         for (D, H, W), b, wall in (((10, 7, 13), 2, "noslip"),
                                    (big, 1, "reference")):
             tag = f"{W}x{H}x{D}"
             f = self.rand(rng, (D, H, W))
             g = self.rand(rng, (D + 2, H + 2, W + 2))[1:-1, 1:-1, 1:-1]
-            for form, two, kw in forms:
-                second = g.contiguous() if two else None
-                self.compare("hbm_stream", stream_copy(f, second, **kw),
-                             stream_copy_plain(f, second, **kw),
-                             f"{tag} {form}")
             for nsw in KERNEL_NSW:
                 for v in VARIANTS:
                     got = sweep_pass_variant(f, g, v, nsw, b, a, c, wall)
@@ -1643,6 +1712,8 @@ class Smoke:
         for tool in (exp_hbm, exp_hbm2, exp_sweepcost):
             tool.main(["--n", "10"])
             torch.cuda.empty_cache()
+        exp_sweepcost.main(["--n", "10", "--shape", "512", "256", "256"])
+        torch.cuda.empty_cache()
 
     def probes_last(self):
         """B23's exp_dma, exp_transpose and exp_solve_mxu (phase 20)."""

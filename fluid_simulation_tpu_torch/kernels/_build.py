@@ -86,7 +86,7 @@ SIGNATURES = {
     "fst_cpack_red": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_cpack_black": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_probe_add1": (_P, _P, _I, _P),
-    "fst_hbm_stream": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "fst_hbm_stream": (_P, _P, _P) + (_I,) * 9 + (_P,),
     "fst_sweepcost_pass": (_P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _I,
                            _I, _P),
     "fst_dma_stream": (_P,) * 7 + (_I,) * 11 + (_P,),

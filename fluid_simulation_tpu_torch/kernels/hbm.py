@@ -18,6 +18,11 @@ over a (D, H, W) f32 array in z-blocks of ``blk`` planes,
 
 The probes that time it are ``fluid_simulation_tpu_torch/tools/exp_hbm.py``
 and ``exp_hbm2.py``; no route of the wind tunnel calls it.
+
+The kernel's grid is one block a work item (``stream_items``): ``ITEM``
+planes of one z-block of one (x, y) tile. ``item_plan`` says which planes
+each item streams and which window planes it stages, as ``csrc/hbm.cu``
+deals them out; the CPU tests hold the plan to the tools' window bytes.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from fluid_simulation_tpu_torch.ops.linsolve import as_scalar
 HB = 8            # the JAX tools' halo window depth (exp_hbm.py:32)
 CHAIN_STEPS = 14  # exp_hbm.py:132-133
 CHAIN_MUL = 1.0001
+ITEM = 4          # planes of a work item (csrc/hbm.cu kGroup)
+TILE = (32, 8)    # threads of a block in x and y, VEC cells each in x
 
 
 def _check_form(b, blk: int, halo: bool, chain: bool, hb: int) -> None:
@@ -55,6 +62,51 @@ def window_planes(D: int, blk: int, hb: int = HB, device="cpu"):
     r, nhb = blk // hb, -(-D // hb)
     return (hb * torch.clamp(k * r - 1, min=0),
             hb * torch.clamp(k * r + r, max=nhb - 1))
+
+
+def stream_vec(a: torch.Tensor, *others) -> int:
+    """Cells a thread streams in x: 4 (one 16-byte vector) where W is a
+    multiple of 4 and every pointer is 16-byte aligned, else 1."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a,) + others
+                  if t is not None)
+    return 4 if a.shape[-1] % 4 == 0 and aligned else 1
+
+
+def stream_items(shape, blk: int, vec: int) -> int:
+    """The kernel's work items on a (D, H, W) array, one block each: groups
+    of ``ITEM`` planes (none across a z-block's end) of each z-block of each
+    tile of ``TILE[0] * vec`` x ``TILE[1]`` cells."""
+    D, H, W = shape
+    tiles = -(-W // (TILE[0] * vec)) * -(-H // TILE[1])
+    return tiles * -(-D // blk) * -(-blk // ITEM)
+
+
+def item_plan(D: int, blk: int, hb: int = HB):
+    """Per z-block k, its items' work as ``csrc/hbm.cu`` does it, one (x,
+    y) tile alike: a list of ``(planes, staged, lohi)`` per item g, where
+    ``planes`` are the output planes it streams, ``staged`` the window
+    planes it stages (``("a" | "b", z)``, entries g, g + items, .. of
+    b(zw), a(zw+1), b(zw+1), .. over the lo then the hi window) and
+    ``lohi`` a's planes lo and hi, which it reads for every output."""
+    lo, hi = window_planes(D, blk, hb)
+    groups = -(-blk // ITEM)
+    plan = []
+    for k in range(-(-D // blk)):
+        zl, zh = int(lo[k * blk]), int(hi[k * blk])
+        entries = []
+        for zw in (zl, zh):
+            for z in range(zw, min(zw + hb, D)):
+                if z > zw:
+                    entries.append(("a", z))
+                entries.append(("b", z))
+        items = []
+        for g in range(groups):
+            z0 = k * blk + g * ITEM
+            n = min(ITEM, blk - g * ITEM, D - z0)
+            items.append((list(range(z0, z0 + max(n, 0))),
+                          entries[g::groups], (zl, zh)))
+        plan.append(items)
+    return plan
 
 
 def stream_copy_plain(a: torch.Tensor, b: Optional[torch.Tensor] = None, *,
@@ -101,9 +153,8 @@ def stream_copy(a: torch.Tensor, b: Optional[torch.Tensor] = None, *,
 
 def _launch(a, b, out, blk, hb, halo, chain):
     D, H, W = a.shape
-    aligned = all(t.data_ptr() % 16 == 0 for t in (a, out)
-                  + (() if b is None else (b,)))
-    vec = 4 if W % 4 == 0 and aligned else 1
+    vec = stream_vec(a, out, b)
     _build.launch("fst_hbm_stream", a.get_device(), _build.ptr(a),
                   None if b is None else _build.ptr(b), _build.ptr(out), D, H,
-                  W, blk, hb, int(halo), int(chain), vec)
+                  W, blk, hb, int(halo), int(chain), vec,
+                  stream_items(a.shape, blk, vec))

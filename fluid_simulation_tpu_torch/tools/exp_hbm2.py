@@ -18,8 +18,9 @@ in its order, each ``c = row(c, r)`` from ``c = 0.1`` everywhere with
   and the rhs ``r``.
 
 Times and rates as ``exp_hbm`` prints them (JAX bytes: 3, 5, 5 and 5
-arrays). ``prod1``'s issued bytes are its tile loads of the carry, one rhs
-load per cell update and the store (``pass_issued_bytes``). The rows'
+arrays). ``prod1``'s issued bytes are its z-march's ring loads of the
+carry and the rhs (each block's window once a plane) and the store
+(``pass_issued_bytes``). The rows'
 inputs are distinct, so ``copy2d`` and ``copy2hd`` are the ceilings of the
 pattern; ``exp_sweepcost`` holds the pass kernel's variants against
 ``copy2hd``.
@@ -33,13 +34,12 @@ import torch
 
 from fluid_simulation_tpu_torch.kernels.hbm import HB
 from fluid_simulation_tpu_torch.kernels.linsolve_stream import (
-    pass_plain, sweep_pass)
+    MARCH_CHUNK, MARCH_TILE, pass_plain, sweep_pass)
 from fluid_simulation_tpu_torch.tools import exp_hbm
 from fluid_simulation_tpu_torch.tools._timing import clock_line
 
 # exp_hbm2.py:111-112: the production call's coefficients and field
 PASS_B, PASS_A, PASS_C = 1, 1e-4, 1.0006
-TILE = (32, 8, 8)   # rbgs_tile.cuh's TX, TY, TZ
 
 
 def _clipped(n: int, t: int, m: int) -> int:
@@ -50,22 +50,17 @@ def _clipped(n: int, t: int, m: int) -> int:
 
 def pass_issued_bytes(shape, nsw: int) -> int:
     """Bytes an empty-scene pass of ``rbgs_pass<nsw>`` loads and stores on a
-    (D, H, W) f32 carry: each tile's cells inside the domain (halo 2*nsw),
-    one rhs load per cell update (half the in-domain cells of each
-    half-sweep's region, which shrinks one cell a side per half-sweep), and
-    the output once."""
-    dims = tuple(reversed(shape))          # (W, H, D) against TILE
+    (D, H, W) f32 carry: every block reads the carry and the rhs once at
+    each cell of its ring planes inside the domain (its tile with a halo
+    of 2*nsw in x and y, its planes with 2*nsw more at each end), and
+    writes each output cell once."""
     m = 2 * nsw
-
-    def cells(margin):
-        out = 1
-        for n, t in zip(dims, TILE):
-            out *= _clipped(n, t, margin)
-        return out
-
-    updates = sum(cells(m - h - 1) for h in range(2 * nsw)) / 2
+    cells = 1
+    # (W, H, D) against rbgs_tile.cuh's kTx, kTy, kChunk
+    for n, t in zip(reversed(shape), MARCH_TILE[nsw] + (MARCH_CHUNK,)):
+        cells *= _clipped(n, t, m)
     D, H, W = shape
-    return int(4 * (cells(m) + updates + D * H * W))
+    return 4 * (2 * cells + D * H * W)
 
 
 def rows(device="cuda", shape=(256, 256, 256)) -> List[exp_hbm.Row]:

@@ -16,6 +16,9 @@ times 1.0001 a step, so the bound is 14 ulps of the largest |acc|
 (CHAIN_ULPS).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -24,8 +27,12 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
+from fluid_simulation_tpu_torch.kernels import hbm
 from fluid_simulation_tpu_torch.kernels.hbm import (
-    HB, stream_copy, stream_copy_plain, window_planes)
+    HB, ITEM, TILE, item_plan, stream_copy, stream_copy_plain, stream_items,
+    window_planes)
+from fluid_simulation_tpu_torch.kernels.linsolve_stream import (
+    MARCH_CHUNK, MARCH_TILE)
 from fluid_simulation_tpu_torch.tools import _timing, exp_hbm, exp_hbm2
 
 torch.set_num_threads(1)
@@ -145,42 +152,90 @@ def test_window_bytes_count_every_window_plane(D):
 
 
 def _loaded_by_pass(shape, nsw):
-    """Loads and stores of rbgs_pass<nsw>, block by block, as the tile
-    kernel makes them: every in-domain tile cell once, one rhs load per
-    update of a cell of the half-sweep's colour in its region, every
-    output cell once."""
+    """Loads and stores of rbgs_pass<nsw>, block by block and plane by
+    plane, as the z-march makes them: at every plane it loads (M = 2*nsw
+    under its first output plane to M over its last, in the domain) the
+    carry and the rhs at each in-domain cell of its ring plane (its tile
+    with a halo of M in x and y); every output cell stored once."""
     D, H, W = shape
-    T, M = (8, 8, 32), 2 * nsw
-    loads = updates = 0
-    for z0 in range(0, D, T[0]):
-        for y0 in range(0, H, T[1]):
-            for x0 in range(0, W, T[2]):
-                def box(m):
-                    return [np.arange(o - m, o + t + m) for o, t in
-                            zip((z0, y0, x0), T)]
-                z, y, x = np.meshgrid(*box(M), indexing="ij")
-                inside = (z >= 0) & (z < D) & (y >= 0) & (y < H) & \
-                         (x >= 0) & (x < W)
-                loads += int(inside.sum())
-                for h in range(2 * nsw):
-                    z, y, x = np.meshgrid(*box(M - h - 1), indexing="ij")
-                    inside = (z >= 0) & (z < D) & (y >= 0) & (y < H) & \
-                             (x >= 0) & (x < W)
-                    colour = ((z + y + x) % 2) == (1 - h % 2)
-                    updates += int((inside & colour).sum())
-    return 4 * (loads + updates + D * H * W)
+    (tx, ty), chunk, m = MARCH_TILE[nsw], MARCH_CHUNK, 2 * nsw
+    loads = 0
+    for zs in range(0, D, chunk):
+        ze = min(zs + chunk, D)
+        for y0 in range(-m, H - m, ty):
+            for x0 in range(-m, W - m, tx):
+                y, x = np.meshgrid(np.arange(y0, y0 + ty + 2 * m),
+                                   np.arange(x0, x0 + tx + 2 * m),
+                                   indexing="ij")
+                plane = int(((y >= 0) & (y < H) & (x >= 0) & (x < W)).sum())
+                for q in range(zs - m, ze + m):
+                    if 0 <= q < D:
+                        loads += 2 * plane
+    return 4 * (loads + D * H * W)
 
 
 @pytest.mark.parametrize("shape,nsw", [((16, 8, 32), 1), ((16, 8, 32), 2),
                                        ((10, 7, 13), 2)])
 def test_pass_issued_bytes_counts_the_tile_kernel(shape, nsw):
-    """The model of prod1's issued bytes against the tile kernel's loads
-    counted cell by cell: equal up to the half a cell a row that "half the
-    region" rounds."""
-    want = _loaded_by_pass(shape, nsw)
-    got = exp_hbm2.pass_issued_bytes(shape, nsw)
-    D, H, W = shape
-    assert abs(got - want) <= 4 * 2 * nsw * D * H   # rows of the regions
+    """The model of prod1's issued bytes against the z-march's loads and
+    stores counted cell by cell: equal."""
+    assert exp_hbm2.pass_issued_bytes(shape, nsw) == _loaded_by_pass(shape,
+                                                                      nsw)
+
+
+@pytest.mark.parametrize("D,blk", [(48, 16), (40, 16), (9, 16), (64, 32),
+                                   (35, 8), (256, 16)])
+def test_item_plan_covers_every_plane_once(D, blk):
+    """Every output plane is streamed by exactly one work item, and no item
+    crosses its z-block's end."""
+    plan = item_plan(D, blk)
+    planes = [z for items in plan for pl, _, _ in items for z in pl]
+    assert sorted(planes) == list(range(D))
+    for k, items in enumerate(plan):
+        assert all(k * blk <= z < (k + 1) * blk for pl, _, _ in items
+                   for z in pl)
+
+
+@pytest.mark.parametrize("D,blk", [(48, 16), (40, 16), (9, 16), (64, 32),
+                                   (35, 8), (256, 16)])
+def test_item_plan_stages_each_window_plane_once(D, blk):
+    """Per z-block, its items together stage every window plane that no
+    output reads (a's planes 1..hb-1 of each window, all of b's) exactly
+    once and read a's first planes lo and hi; counted once a z-block, the
+    planned bytes are the tool's window bytes of both inputs."""
+    H, W = 3, 8
+    lo, hi = window_planes(D, blk)
+    plan, planned = item_plan(D, blk), 0
+    for k, items in enumerate(plan):
+        zl, zh = int(lo[k * blk]), int(hi[k * blk])
+        staged = [e for _, st, _ in items for e in st]
+        want = [(op, z) for zw in (zl, zh) for z in range(zw, min(zw + HB, D))
+                for op in "ab" if (op, z) != ("a", zw)]
+        assert sorted(staged) == sorted(want)
+        assert {lohi for _, _, lohi in items} == {(zl, zh)}
+        planned += len(staged) + 2
+    assert len(plan) == -(-D // blk)
+    assert planned * H * W * 4 == 2 * exp_hbm.window_bytes((D, H, W), blk)
+
+
+def test_item_plan_is_the_kernels():
+    """The plan's block tile and item depth are csrc/hbm.cu's."""
+    src = (Path(hbm.__file__).parents[1] / "csrc" / "hbm.cu").read_text()
+    tx, ty = (int(x) for x in re.search(
+        r"constexpr int kTx = (\d+), kTy = (\d+);", src).groups())
+    group = int(re.search(r"constexpr int kGroup = (\d+);", src).group(1))
+    assert (tx, ty) == TILE and group == ITEM
+
+
+@pytest.mark.parametrize("shape,blk,vec,want", [
+    ((256, 256, 256), 16, 4, 2 * 32 * 16 * 4),
+    ((256, 256, 256), 32, 4, 2 * 32 * 8 * 8),
+    ((40, 8, 16), 16, 1, 1 * 1 * 3 * 4),
+    ((9, 7, 13), 3, 1, 1 * 1 * 3 * 1)])
+def test_stream_items_are_plane_groups_of_tiles(shape, blk, vec, want):
+    """The grid: tiles of 32*vec x 8 cells, z-blocks, 4-plane groups; at
+    256^3 the same items at blk 16 and 32."""
+    assert stream_items(shape, blk, vec) == want
 
 
 @pytest.mark.parametrize("tool,names", [

@@ -16,6 +16,9 @@ the streamed solve and projection are bitwise equal in value, on states
 the step makes (ghost edges zero, velocities zero in solid cells).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -36,13 +39,18 @@ from fluid_simulation_tpu.scene.masks import build_masks as jax_build_masks
 from fluid_simulation_tpu.scene.primitives import add_sphere, empty_obstacles
 from fluid_simulation_tpu_torch.kernels.bounds import pad_bounds_plain
 from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve_plain
+from fluid_simulation_tpu_torch.kernels import linsolve_stream
 from fluid_simulation_tpu_torch.kernels.linsolve_stream import (
-    rbgs_solve_stream_plain)
+    MARCH_CHUNK, MARCH_TILE, face_block, march_geometry, march_pass,
+    pass_plain, rbgs_solve_stream_plain, sweep1_plain)
 from fluid_simulation_tpu_torch.kernels.project import (
     project_empty_plain, project_masked_plain)
 from fluid_simulation_tpu_torch.kernels.project_stream import (
     project_stream_masked_plain, project_stream_plain)
+from fluid_simulation_tpu_torch.kernels.sweepcost import (
+    VARIANTS, sweep_pass_variant_plain)
 from fluid_simulation_tpu_torch.scene.masks import build_masks
+from fluid_simulation_tpu_torch.tools import exp_pass
 
 torch.set_num_threads(1)
 
@@ -239,3 +247,129 @@ def test_solve_stream_equals_resident(nsw, acc, wall_mode):
             got = rbgs_solve_stream_plain(b, f, g, 0.7, 5.2, acc, wall_mode,
                                           keep, nsw)
             assert torch.equal(got, want), (b, keep is None)
+
+
+# The pass kernel's z-march (csrc/rbgs_tile.cuh), emulated step by step in
+# its own layout (linsolve_stream.march_pass): D under the ring and the
+# warm-up (1, 2, 3, 5), a D one past a z-range, H and W under the tile,
+# tiles with face and interior blocks, short z-ranges (chunk 4) so that
+# several blocks march one column, nsw 1 and 2, keep and empty, b 0-3 and
+# both walls. (W, H, D), nsw, keep, wall, b, chunk
+MARCH_CASES = [
+    ((13, 7, 1), 1, False, "reference", 1, MARCH_CHUNK),
+    ((13, 7, 1), 2, True, "noslip", 2, MARCH_CHUNK),
+    ((13, 7, 2), 1, True, "noslip", 3, MARCH_CHUNK),
+    ((13, 7, 2), 2, False, "reference", 0, MARCH_CHUNK),
+    ((13, 7, 3), 1, False, "noslip", 2, MARCH_CHUNK),
+    ((13, 7, 3), 2, True, "reference", 1, MARCH_CHUNK),
+    ((13, 7, 5), 1, True, "reference", 0, MARCH_CHUNK),
+    ((13, 7, 5), 2, False, "noslip", 3, MARCH_CHUNK),
+    ((9, 13, MARCH_CHUNK + 1), 2, True, "noslip", 1, MARCH_CHUNK),
+    ((9, 13, MARCH_CHUNK + 1), 1, False, "reference", 2, MARCH_CHUNK),
+    ((80, 70, 6), 2, True, "reference", 1, MARCH_CHUNK),
+    ((80, 70, 6), 1, False, "noslip", 3, MARCH_CHUNK),
+    ((70, 36, 11), 2, False, "reference", 2, 4),
+    ((70, 36, 11), 1, True, "noslip", 0, 4),
+    ((37, 21, 9), 2, True, "noslip", 3, 4),
+    ((37, 21, 9), 1, True, "reference", 1, 3),
+]
+
+
+def _march_inputs(dims, keep, b, seed):
+    """A carry, an interior rhs view and (with ``keep``) the interior of
+    the keep mask a random 0/1 scene gives field ``b``, as numpy."""
+    W, H, D = dims
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=(D, H, W)).astype(np.float32)
+    g = rng.normal(size=(D + 2, H + 2, W + 2)).astype(np.float32)
+    kv = None
+    if keep:
+        tm = build_masks(_scene(dims, "random"), device=CPU)
+        kv = (tm.keep_vel if b else tm.keep_scalar)[1:-1, 1:-1, 1:-1]
+    return f, g, kv
+
+
+@pytest.mark.parametrize("dims,nsw,keep,wall,b,chunk", MARCH_CASES)
+def test_march_equals_pass_plain(dims, nsw, keep, wall, b, chunk):
+    """The z-march's plan, bit for bit the plain pass."""
+    f, g, kv = _march_inputs(dims, keep, b, sum(dims) + nsw)
+    rhs = g[1:-1, 1:-1, 1:-1]
+    want = pass_plain(_t(f), _t(rhs), kv, b, 0.7, 5.2, nsw, wall)
+    got = march_pass(f, rhs, None if kv is None else kv.numpy(), b, 0.7,
+                     5.2, nsw, wall, chunk=chunk)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("dims,chunk", [
+    ((13, 7, 1), MARCH_CHUNK), ((13, 7, 2), MARCH_CHUNK),
+    ((13, 7, 3), MARCH_CHUNK), ((13, 7, 5), MARCH_CHUNK),
+    ((9, 13, MARCH_CHUNK + 1), MARCH_CHUNK), ((80, 70, 6), MARCH_CHUNK),
+    ((37, 21, 9), 4)])
+def test_march_sweep1_equals_sweep1_plain(dims, chunk):
+    """Sweep 1's march on the padded field (ghost planes -1 and D and the
+    ghost rows and columns read, never spliced), bit for bit."""
+    _, g, _ = _march_inputs(dims, False, 0, sum(dims))
+    field = np.random.default_rng(len(dims)).normal(
+        size=g.shape).astype(np.float32)
+    rhs = g[1:-1, 1:-1, 1:-1]
+    want = sweep1_plain(_t(field), _t(rhs), 0.9, 6.4)
+    got = march_pass(field, rhs, None, 0, 0.9, 6.4, 1, padded=True,
+                     chunk=chunk)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_march_variants_equal_their_plain_versions(variant, nsw):
+    """The sweep-cost variants on the march (csrc/sweepcost.cu), each bit
+    for bit its stated function, at a shape with face and interior
+    blocks and two z-ranges."""
+    f, g, _ = _march_inputs((80, 70, 7), False, 1, nsw)
+    rhs = g[1:-1, 1:-1, 1:-1]
+    want = sweep_pass_variant_plain(_t(f), _t(rhs), variant, nsw, 1, 1e-4,
+                                    1.0006)
+    got = march_pass(f, rhs, None, 1, 1e-4, 1.0006, nsw, variant=variant,
+                     chunk=4)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_march_plan_is_the_kernels():
+    """The plan's tiles, z-range and ring are rbgs_tile.cuh's constants, and
+    the test shapes have face blocks and interior blocks where the tests
+    need them."""
+    src = (Path(linsolve_stream.__file__).parents[1] / "csrc"
+           / "rbgs_tile.cuh").read_text()
+    tx, chunk = (int(x) for x in re.search(
+        r"constexpr int kTx = (\d+), kChunk = (\d+);", src).groups())
+    ty1, ty2 = (int(x) for x in re.search(
+        r"constexpr int kTy = NSW == 1 \? (\d+) : (\d+);", src).groups())
+    assert MARCH_TILE == {1: (tx, ty1), 2: (tx, ty2)}
+    assert chunk == MARCH_CHUNK
+    assert "static constexpr int R = 2 * NSW + 3;" in src
+    assert march_geometry(2)[4] == 7 and march_geometry(1)[4] == 5
+    for nsw, interior in ((1, 3), (2, 1)):
+        M, (tx, ty) = 2 * nsw, MARCH_TILE[nsw]
+        faces = [face_block(bx * tx - M, by * ty - M, 70, 80, nsw)
+                 for by in range(-(-70 // ty)) for bx in range(3)]
+        assert faces.count(False) == interior and faces[0] and faces[-1]
+        assert all(face_block(-M, -M, H, W, nsw) for H, W in ((7, 13),
+                                                               (13, 9)))
+
+
+def test_pass_probe_runs_its_rows_on_the_cpu(capsys):
+    """tools/exp_pass on the host: every production form of the pass
+    kernel, each row its plain version on the host clock."""
+    assert exp_pass.main(["--device", "cpu", "--shape", "12", "8", "6",
+                          "--n", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "host CPU, host clock (no device metric)" in lines[0]
+    assert [ln[:18].strip() for ln in lines[1:]] == [
+        "sweep1", "pass nsw=1", "pass nsw=1 keep", "pass nsw=2",
+        "pass nsw=2 keep"]
+    assert all(ln.endswith("(host clock; no bound)") for ln in lines[1:])
+
+
+def test_pass_probe_needs_the_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        exp_pass.main(["--n", "1"])
