@@ -7,7 +7,9 @@ divergence of each step) read back to the host, as a user of the tunnel
 watches a live run. The window ends with the first frame that would start
 after ``seconds``.
 
-The check compares what the window produced with ``reference/step.py``:
+The check compares what the window produced with the plain reference
+that the cell's configuration names (its key ``reference``: the module
+``reference/<name>.py``, found by ``reference`` below):
 
 - ``start_gap``: the first ``WARMUP_STEPS`` steps from the seeded state
   (set-up runs them, and they warm every shape), against the reference
@@ -34,6 +36,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 from typing import Dict, List, Optional
@@ -42,7 +45,6 @@ import numpy as np
 import torch
 
 from windbench import traffic
-from windbench.reference import step as ref
 
 ROOT = traffic.ROOT
 WARMUP_STEPS = 2
@@ -52,6 +54,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "fluid_simulation_tpu")
 CHECKS = ("start_gap", "step_gap", "stats_gap")
 SPANS = ("windbench.step", "windbench.readback")
 ENTRY_SPAN = "windbench.entry."
+# a reference is a module of reference/, so its name is a Python identifier
+REFERENCE_NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]{0,63}")
 
 
 def benchmark() -> dict:
@@ -86,6 +90,27 @@ def process_age_s(fallback_start: float) -> float:
         return time.perf_counter() - fallback_start
 
 
+def reference(config: dict):
+    """The module ``reference/<name>.py`` that the configuration's
+    ``reference`` key names: the plain step that its runs are held to, with
+    ``params_of``, ``build_masks`` and ``step`` (the contract is in
+    ``reference/step.py``). Raises ``ValueError`` naming the name where it
+    is absent, not a module name, or names no module."""
+    name = config.get("reference")
+    if not isinstance(name, str) or not REFERENCE_NAME.fullmatch(name):
+        raise ValueError(f"windbench: the configuration's reference {name!r} "
+                         "is not the name of a module of windbench/reference/")
+    modname = f"windbench.reference.{name}"
+    try:
+        mod = importlib.import_module(modname)
+    except ModuleNotFoundError as exc:
+        if exc.name != modname:
+            raise
+        raise ValueError(f"windbench: no reference {name!r}: "
+                         f"windbench/reference/{name}.py is missing") from None
+    return mod
+
+
 class PortSystem:
     """The system under test: one ``fluid_simulation_tpu_torch.WindTunnel``
     built from the configuration and the benchmark's obstacle field."""
@@ -110,14 +135,16 @@ class PortSystem:
 
 
 class ReferenceSystem:
-    """The plain reference put in the program's place, computing in
-    ``dtype``: the low-precision control (bfloat16) of a float32 cell."""
+    """The configuration's plain reference put in the program's place,
+    computing in ``dtype``: the low-precision control (bfloat16) of a
+    float32 cell."""
 
     def __init__(self, config: dict, obstacles: np.ndarray, device,
                  dtype=torch.bfloat16):
         self.dtype = dtype
-        self.p = ref.params_of(config)
-        self.m = ref.build_masks(obstacles, dtype, device)
+        self.ref = reference(config)
+        self.p = self.ref.params_of(config)
+        self.m = self.ref.build_masks(obstacles, dtype, device)
         self.fields = None
 
     def set_state(self, fields):
@@ -127,13 +154,16 @@ class ReferenceSystem:
         return tuple(f.to(torch.float32) for f in self.fields)
 
     def step(self):
-        self.fields, stats = ref.step(self.fields, self.m, self.p)
+        self.fields, stats = self.ref.step(self.fields, self.m, self.p)
         return stats
 
 
 class Cell:
-    """A cell's data and its system, built once (``scene_setup_s`` spans
-    building the obstacle field and constructing the system)."""
+    """A cell's data, its reference and its system, built once
+    (``scene_setup_s`` spans building the obstacle field and constructing
+    the system). The reference's ``params_of`` runs first, so a
+    configuration that its reference does not compute fails here, before
+    anything is built or runs on the card."""
 
     def __init__(self, name: str, device, system=PortSystem,
                  workload: Optional[dict] = None,
@@ -142,6 +172,8 @@ class Cell:
         self.workload = workload or traffic.load_json("workloads", name)
         self.config = config or traffic.load_json(
             "configs", self.workload["config"])
+        self.ref = reference(self.config)
+        self.params = self.ref.params_of(self.config)
         self.device = torch.device(device)
         t0 = time.perf_counter()
         self.obstacles = traffic.scene(self.workload["scene"], self.config)
@@ -456,10 +488,10 @@ def _gap(got, want) -> float:
 
 
 def check(cell: Cell, seed: int, caps: Captures, device=None) -> Dict:
-    """The three numbers of the check, computed by the float32 reference on
-    ``device`` (the cell's by default) from the captures."""
+    """The three numbers of the check, computed by the cell's reference in
+    float32 on ``device`` (the cell's by default) from the captures."""
     device = torch.device(device or cell.device)
-    p = ref.params_of(cell.config)
+    ref, p = cell.ref, cell.params
     m = ref.build_masks(cell.obstacles, torch.float32, device)
     state = traffic.initial_state(cell.obstacles, cell.workload["init"],
                                   seed, device)

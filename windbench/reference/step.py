@@ -26,6 +26,20 @@ dtype of the state it is given (float32, or bfloat16 for the benchmark's
 low-precision control); backtrace coordinates and stats stay float32.
 
 This module imports only numpy and torch: nothing of the program.
+
+A configuration names the module of ``reference/`` that its runs are held
+to (its key ``reference``; this one is ``step``), and the harness finds it
+by that name. Every such module keeps one contract:
+
+- ``params_of(config)`` returns the module's parameters from the
+  configuration's fields, and raises for any configuration that the module
+  does not compute;
+- ``build_masks(obstacles, dtype, device)`` returns the masks of the padded
+  obstacle field (1 = solid);
+- ``step(state, masks, params)`` returns ``(new_state, (density_sum,
+  max_divergence))``, the stats as float32 0-d tensors, and leaves its
+  input unchanged;
+- it imports numpy and torch only.
 """
 
 from __future__ import annotations

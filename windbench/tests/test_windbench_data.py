@@ -14,7 +14,8 @@ from windbench import harness, traffic
 ROOT = Path(__file__).resolve().parents[1]
 SPEC = json.loads((ROOT.parent / "BENCHMARK.json").read_text())
 FIELDS = {f.name for f in dataclasses.fields(SimParams)}
-META = {"source", "assumed", "reduced", "guarantees", "deployment"}
+META = {"source", "assumed", "reduced", "guarantees", "deployment",
+        "reference"}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
@@ -22,14 +23,23 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
                          ids=lambda p: p.stem)
 def test_config_names_simparams_fields(path):
     cfg = json.loads(path.read_text())
-    assert set(cfg) - META == FIELDS
+    assert set(cfg) - META == FIELDS and "reference" in cfg
     SimParams(**{k: cfg[k] for k in FIELDS})
     assert len(cfg["source"]) <= 200
     for key, value in cfg["guarantees"].items():
         assert cfg[key] == value, key
+    # the mode is held by the reference the configuration names (below)
     assert cfg["guarantees"] == {"dtype": "float32", "solver": "rbgs",
-                                 "acc": 15, "mode": "split"}
+                                 "acc": 15, "mode": cfg["mode"]}
     assert set(cfg["reduced"]) <= FIELDS
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "configs").glob("*.json")),
+                         ids=lambda p: p.stem)
+def test_config_names_a_reference_that_computes_it(path):
+    cfg = json.loads(path.read_text())
+    assert (ROOT / "reference" / f"{cfg['reference']}.py").is_file()
+    harness.reference(cfg).params_of(cfg)
 
 
 @pytest.mark.parametrize("path", sorted((ROOT / "workloads").glob("*.json")),
