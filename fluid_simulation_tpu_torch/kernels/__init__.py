@@ -70,7 +70,14 @@ show which kernels carried it:
   variant of K3's stacked x pass on an index plane
   (``tools/exp_lerpcost.py``; no route)
 
-These counters are the package's only global state.
+``PLAIN`` counts calls that the step routes to a kernel's plain version
+instead, one per call:
+
+- ``trilinear_gather``       (ops/advect.py)              one per trilinear
+  sample of compat or fast advection at ``advect_window`` 0 (4 a step)
+
+These counters are the package's only global state; ``reset_launches``
+clears both.
 """
 
 LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
@@ -88,6 +95,10 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "lerp_pass": 0, "rbgs_solve_mxu": 0, "lerpcost_pass": 0}
 
 
+PLAIN = {"trilinear_gather": 0}
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PLAIN):
+        for k in counts:
+            counts[k] = 0

@@ -42,8 +42,6 @@ import torch
 
 from fluid_simulation_tpu_torch.config import SimParams
 from fluid_simulation_tpu_torch.kernels import _build, linsolve_stream
-from fluid_simulation_tpu_torch.kernels.advect_compat import (
-    trilinear_gather_window)
 from fluid_simulation_tpu_torch.kernels.advect_split import (
     advect_split, advect_split_plain)
 from fluid_simulation_tpu_torch.kernels.bounds import (
@@ -55,8 +53,7 @@ from fluid_simulation_tpu_torch.kernels.project_stream import (
     project_stream, project_stream_masked)
 from fluid_simulation_tpu_torch.kernels.vorticity import (
     confinement, confinement_plain)
-from fluid_simulation_tpu_torch.ops.advect import (
-    advect, backtrace, trilinear_gather)
+from fluid_simulation_tpu_torch.ops.advect import advect, backtrace, gather
 from fluid_simulation_tpu_torch.ops.linsolve import (
     as_scalar, diffuse, diffusion_coeffs)
 from fluid_simulation_tpu_torch.ops.project import divergence, grid_h, project
@@ -206,7 +203,9 @@ def simulation_step(state: FluidState, masks: SceneMasks,
     runs in a span (``utils/profiling.span``): ``fst.step`` around
     ``fst.inlets``, ``fst.diffuse``, ``fst.project`` (twice),
     ``fst.advect``, ``fst.confine``, ``fst.advect_density`` and
-    ``fst.stats``."""
+    ``fst.stats``. Inside the advection phases each trilinear sample of
+    compat and fast runs in ``fst.gather`` (4 a step), and each padding or
+    ``set_bounds`` in ``fst.bounds`` (split 2, fast 2, compat 4 a step)."""
     with span("fst.step"):
         return _step(state, masks, params)
 
@@ -249,9 +248,7 @@ def _step(state: FluidState, masks: SceneMasks,
                 vx[1:-1, 1:-1, 1:-1], vy[1:-1, 1:-1, 1:-1],
                 vz[1:-1, 1:-1, 1:-1], p.dt, p.width, p.height, p.depth,
                 vx.dtype)
-            gather = (trilinear_gather_window if window > 0
-                      else trilinear_gather)
-            smp = torch.stack([gather(prev, xb, yb, zb)
+            smp = torch.stack([gather(prev, xb, yb, zb, window)
                                for prev in (pvx, pvy, pvz)])
             vx, vy, vz = _pad_bounds_tail(smp, (1, 2, 3), masks, p)
         elif p.mode == "split":

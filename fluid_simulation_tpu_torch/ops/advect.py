@@ -16,6 +16,11 @@ The eight corners are read with one direct index gather per corner offset.
 With ``window > 0`` the sample is ``kernels.advect_compat``'s wrapper, which
 launches the trilinear kernel on a CUDA tensor and is this module's
 ``trilinear_gather`` on the CPU.
+
+Spans (``utils/profiling.span``): ``gather`` runs each sample in
+``fst.gather`` and counts each plain one in
+``kernels.PLAIN["trilinear_gather"]``; ``advect`` runs its ``set_bounds`` in
+``fst.bounds``. A compat step opens four of each.
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fluid_simulation_tpu_torch.kernels import PLAIN
 from fluid_simulation_tpu_torch.ops.bounds import set_bounds
 from fluid_simulation_tpu_torch.ops.linsolve import as_scalar
 from fluid_simulation_tpu_torch.scene.masks import SceneMasks
+from fluid_simulation_tpu_torch.utils.profiling import span
 
 
 def _lerp8(c000, c100, c010, c110, c001, c101, c011, c111, sx, sy, sz):
@@ -64,6 +71,21 @@ def trilinear_gather(prev: torch.Tensor, xb, yb, zb,
     base = (k0 * sz_ + j0 * sy_ + i0).clamp(0, flat.numel() - 1 - offsets[-1])
     corners = [flat[base + d] for d in offsets]
     return _lerp8(*corners, sx, sy, sz)
+
+
+def gather(prev: torch.Tensor, xb, yb, zb, window: int = 0) -> torch.Tensor:
+    """One trilinear sample of compat or fast advection, in the span
+    ``fst.gather``: through the trilinear kernel's wrapper with
+    ``window > 0`` (``SimParams.advect_window``), else through
+    ``trilinear_gather``, counted in ``kernels.PLAIN``. Both give the same
+    values."""
+    with span("fst.gather"):
+        if window > 0:
+            from fluid_simulation_tpu_torch.kernels.advect_compat import (
+                trilinear_gather_window)
+            return trilinear_gather_window(prev, xb, yb, zb)
+        PLAIN["trilinear_gather"] += 1
+        return trilinear_gather(prev, xb, yb, zb)
 
 
 def backtrace(vx_i, vy_i, vz_i, dt: float, W: int, H: int, D: int, dtype):
@@ -109,13 +131,9 @@ def advect(
     vz_i = (prev if b == 3 else vz)[1:-1, 1:-1, 1:-1]
 
     xb, yb, zb = backtrace(vx_i, vy_i, vz_i, dt, W, H, D, prev.dtype)
-    if window > 0:
-        from fluid_simulation_tpu_torch.kernels.advect_compat import (
-            trilinear_gather_window)
-        sampled = trilinear_gather_window(prev, xb, yb, zb)
-    else:
-        sampled = trilinear_gather(prev, xb, yb, zb)
+    sampled = gather(prev, xb, yb, zb, window)
     new_i = sampled if empty_scene else sampled * masks.fluid_i
     out = torch.zeros_like(prev)
     out[1:-1, 1:-1, 1:-1] = new_i
-    return set_bounds(b, out, masks, wall_mode, empty_scene)
+    with span("fst.bounds"):
+        return set_bounds(b, out, masks, wall_mode, empty_scene)

@@ -25,9 +25,10 @@ a card.
 The phases are the spans the step opens (``span``): ``fst.step`` around
 each ``simulation_step``, and inside it ``fst.inlets``, ``fst.diffuse``,
 ``fst.project`` (twice), ``fst.advect``, ``fst.confine`` (with vorticity),
-``fst.advect_density``, ``fst.stats``, and ``fst.bounds`` in whichever of
-them pads; ``WindTunnel.__init__`` opens ``fst.setup`` around
-``fst.setup.masks`` and ``fst.setup.state``.
+``fst.advect_density``, ``fst.stats``, ``fst.bounds`` in whichever of
+them pads or sets the bounds, and ``fst.gather`` around each trilinear
+sample of compat and fast (``ops/advect.gather``); ``WindTunnel.__init__``
+opens ``fst.setup`` around ``fst.setup.masks`` and ``fst.setup.state``.
 """
 
 from __future__ import annotations

@@ -22,8 +22,8 @@ import torch.nn.functional as F
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
-    LAUNCHES, _build, advect_compat as k9, advect_split as k3, bounds as k4,
-    dma as k23d, hbm as k23h, lerpcost as k24, linsolve as k1,
+    LAUNCHES, PLAIN, _build, advect_compat as k9, advect_split as k3,
+    bounds as k4, dma as k23d, hbm as k23h, lerpcost as k24, linsolve as k1,
     linsolve_blocked as k22c,
     linsolve_cpack as k22b, linsolve_mxu as k23m, linsolve_stream as k11,
     linsolve_sweep as k15, prestep as k22a, probe as k23, project as k2,
@@ -536,6 +536,23 @@ def test_window_step_launch_counts(card, mode, scene, nonzero):
                   advect_window=1)
     obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
     assert _run_two_steps(p, obs) == _counts(**nonzero)
+
+
+@pytest.mark.parametrize("mode", ["compat", "fast"])
+@pytest.mark.parametrize("window", [0, 1])
+def test_plain_gathers_are_counted(card, mode, window):
+    """Each of a step's four trilinear samples is a plain gather at window
+    0, counted in ``PLAIN`` and launching nothing, and a launch of the
+    trilinear kernel with a window, where no plain gather is counted."""
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode,
+                  advect_window=window)
+    wt = WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4,
+                                            4, 2), device=CPU)
+    wt.state = FluidState(*_random_state(p))
+    wt.simulate(2)
+    plain = 0 if window else 4
+    assert PLAIN == {"trilinear_gather": 2 * plain}
+    assert LAUNCHES["trilinear_gather"] == 2 * (4 - plain)
 
 
 @pytest.mark.parametrize("mode", ["compat", "fast"])

@@ -58,11 +58,31 @@ def test_each_step_nests_its_phases(label):
     for step in steps:
         assert _children(events, step) == want
     bounds = [e for e in events if e.name == "fst.bounds"]
-    # split pads the advected velocity and density, fast the velocity
-    per_step = {"split": 2, "fast": 1, "compat": 0}[p.mode]
+    # split pads the advected velocity and density, fast the velocity and
+    # sets the density's bounds, compat sets each of its four advects'
+    per_step = {"split": 2, "fast": 2, "compat": 4}[p.mode]
     assert len(bounds) == 2 * per_step
     assert {e.cpu_parent.name for e in bounds} <= {"fst.advect",
                                                   "fst.advect_density"}
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_each_trilinear_sample_in_its_span(label):
+    """compat and fast run each of a step's four trilinear samples in
+    ``fst.gather``, three of the velocity inside ``fst.advect`` and the
+    density's inside ``fst.advect_density``; split samples none."""
+    p = CASES[label]
+    wt = WindTunnel(p, obstacles=_sphere(), device=CPU)
+    wt.step()
+    _, events = _profiled(lambda: wt.simulate(2))
+    gathers = [e.cpu_parent.name for e in events if e.name == "fst.gather"]
+    if p.mode == "split":
+        assert gathers == []
+        return
+    assert sorted(gathers) == (["fst.advect"] * 6
+                               + ["fst.advect_density"] * 2)
+    assert not [e for e in events if e.cpu_parent is not None
+                and e.cpu_parent.name == "fst.gather"]
 
 
 def test_spans_are_not_user_annotations():
