@@ -154,7 +154,15 @@ final ``ok`` line):
     random stack and plane, and ``torch.nn.functional.grid_sample``
     beside it, held to ``full`` within 1e-3; then the probe's rows at
     256^3 (the tool's constant stack 0.5);
-22. ms/step of the kernel path and the plain path, timed with CUDA events.
+22. the step's statistics (``stats``): the kernel against its plain
+    version at 128x64x64 and 512x256x256, empty and with the bench sphere,
+    max_divergence bitwise, the density sum within 2e-6 of a float64 sum
+    and the same bits over 5 calls, statistics that are off NaN, a NaN or
+    inf velocity cell a non-finite max_divergence, its time beside the
+    plain version's and its bound; a split sphere run with both
+    statistics on, one ``step_stats`` launch a step, its statistics
+    against the plain path's over 3 steps;
+23. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -275,6 +283,11 @@ KERNELS = {
     # on the random index plane)
     "lerpcost_pass": ("fluid_simulation_tpu_torch/csrc/lerpcost.cu",
                       "tools/exp_lerpcost.py:29"),
+    # the step's statistics: no TPU kernel, XLA's fused glue in the JAX
+    # step (row: 512x256x256 with the bench sphere)
+    "step_stats": ("fluid_simulation_tpu_torch/csrc/stats.cu",
+                   "none (XLA glue, fluid_simulation_tpu/models/"
+                   "windtunnel.py:403-413)"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -298,7 +311,10 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "lerp_pass": 15, "rbgs_solve_mxu": 8,
                 # the coordinate (floor, clip, fraction, 1 - s) once, and a
                 # lerp (2 products, a sum) per field, per output
-                "lerpcost_pass": 4 + 3 * 3}
+                "lerpcost_pass": 4 + 3 * 3,
+                # the masked divergence (6 products, 5 sums, 2 products),
+                # |.|, the max and the density add
+                "step_stats": 16}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -2116,6 +2132,115 @@ class Smoke:
         exp_lerpcost.main(["--n", "10"])
         torch.cuda.empty_cache()
 
+    def stats(self):
+        """The step's statistics (``kernels/stats.py``) against their plain
+        version at 128x64x64 and 512x256x256, empty and with the bench
+        sphere, on step-like random fields: max_divergence bitwise, the
+        density sum within 2e-6 of a float64 sum and the same bits over 5
+        calls; a statistic that is off NaN; a NaN or inf in one velocity
+        cell a non-finite max_divergence; the kernel's time beside the
+        plain version's and its bound. Then a split step with both
+        statistics on, counted: one ``step_stats`` launch a step, and the
+        kernel path's statistics against the plain path's over 3 steps."""
+        import numpy as np
+        from fluid_simulation_tpu_torch import SimParams, WindTunnel
+        from fluid_simulation_tpu_torch.kernels.stats import (
+            step_stats, step_stats_plain)
+        from fluid_simulation_tpu_torch.models.windtunnel import (
+            simulation_step)
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.scene.primitives import (
+            empty_obstacles)
+        from fluid_simulation_tpu_torch.utils.profiling import (
+            big_sphere, flagship_sphere)
+        torch = self.torch
+        rng = np.random.default_rng(SEED)
+        for (W, H, D) in ((128, 64, 64), (512, 256, 256)):
+            pad = (D + 2, H + 2, W + 2)
+            for sphere in (False, True):
+                obs = ((flagship_sphere() if W == 128 else
+                        big_sphere(W, H, D)) if sphere
+                       else empty_obstacles(W, H, D))
+                m = build_masks(obs, device="cuda")
+                tag = f"{W}x{H}x{D}" + (" sphere" if sphere else " empty")
+                vel = self.step_like(rng, pad, m.keep_scalar if sphere
+                                     else None)
+                dens = self.rand(rng, pad, 0.0, 0.05)
+                args = (*vel, dens, m)
+                kf = lambda: step_stats(*args, not sphere)   # noqa: E731
+                pf = lambda: step_stats_plain(*args)         # noqa: E731
+                got, want = kf(), pf()
+                self.compare("step_stats", got[1], want[1],
+                             f"{tag} max_divergence")
+                exact = float(dens.double().sum())
+                rel = abs(float(got[0]) - exact) / exact
+                rel_torch = abs(float(want[0]) - exact) / exact
+                again = [kf()[0] for _ in range(5)]
+                same = all(torch.equal(a, got[0]) for a in again)
+                print(f"   step_stats     {tag:34s} density_sum "
+                      f"{float(got[0])!r} vs float64 {exact!r}: rel "
+                      f"{rel:.3g} (torch.sum {rel_torch:.3g}; bound 2e-6)"
+                      f", 5 calls the same bits: {same}", flush=True)
+                self.check(rel <= 2e-6 and same,
+                           f"step_stats {tag}: density sum rel {rel}, "
+                           f"same bits {same}")
+                if W == 128 and sphere:
+                    self.stats_edges(step_stats, args, got, tag)
+                # the result line's row: 512x256x256 with the sphere
+                row = W == 512 and sphere
+                if row:
+                    self.time_pair("step_stats", kf, pf, 20, tag)
+                else:
+                    print(f"   step_stats     {tag}: kernel "
+                          f"{self.event_ms(kf, 20):.4f} ms, plain "
+                          f"{self.event_ms(pf, 20):.4f} ms per call",
+                          flush=True)
+                fl = (m.fluid_i,) if sphere else ()
+                self.bound("step_stats", (*vel, dens, *fl, got[0], got[1]),
+                           OPS_PER_CELL["step_stats"] * W * H * D, row)
+                del m, vel, dens, args, got, want, again
+            torch.cuda.empty_cache()
+        wt = WindTunnel(SimParams(mode="split"), obstacles=flagship_sphere(),
+                        device="cuda")
+        self.run_path(wt, 10, "split sphere with its statistics",
+                      rbgs_solve_keep=3, project_masked=2, advect_split=2,
+                      pad_bounds_masked=2, step_stats=1)
+        kern = plain = wt.state
+        plain_p = wt.params.replace(use_pallas=False)
+        for i in range(3):
+            kern, ks = simulation_step(kern, wt.masks, wt.params)
+            plain, ps = simulation_step(plain, wt.masks, plain_p)
+            rel = abs(float(ks.density_sum) - float(ps.density_sum)) / abs(
+                float(ps.density_sum))
+            print(f"   step {i + 1} kernel path vs plain path: "
+                  f"max_divergence {float(ks.max_divergence)!r} / "
+                  f"{float(ps.max_divergence)!r}, density_sum rel {rel:.3g}",
+                  flush=True)
+            self.check(torch.equal(ks.max_divergence, ps.max_divergence)
+                       and rel <= 2e-6, f"step {i + 1}: statistics differ")
+
+    def stats_edges(self, step_stats, args, got, tag):
+        """A statistic that is off is NaN and the other unchanged; a NaN or
+        inf in one fluid velocity cell gives a non-finite max_divergence."""
+        torch = self.torch
+        for div_on, sum_on in ((True, False), (False, True), (False, False)):
+            a = step_stats(*args, False, div_on, sum_on)
+            for on, x, full in ((sum_on, a[0], got[0]),
+                                (div_on, a[1], got[1])):
+                ok = torch.equal(x, full) if on else bool(torch.isnan(x))
+                self.check(ok, f"step_stats {tag} flags ({div_on}, "
+                           f"{sum_on}): {float(x)!r}")
+        for value in (float("nan"), float("inf")):
+            for field in range(3):
+                bad = [t.clone() for t in args[:4]]
+                bad[field][5, 6, 7] = value
+                x = step_stats(*bad, args[4], False)[1]
+                self.check(not bool(torch.isfinite(x)),
+                           f"step_stats {tag}: {value} in field {field} "
+                           f"gave max_divergence {float(x)!r}")
+        print(f"   step_stats     {tag}: flags off give NaN, NaN and inf "
+              f"in a velocity a non-finite max_divergence", flush=True)
+
     def times(self):
         from fluid_simulation_tpu_torch import WindTunnel
         from fluid_simulation_tpu_torch.utils.profiling import cells
@@ -2180,6 +2305,7 @@ PHASES = [
     ("probes_last", "DMA-issue, transpose and tensor-core probes",
      "probes_last"),
     ("lerpcost", "the degrade variants of K3's stacked x pass", "lerpcost"),
+    ("stats", "kernels vs plain: the step's statistics", "stats"),
     ("times", "times", "times"),
 ]
 

@@ -124,8 +124,38 @@ __device__ __forceinline__ void keep_red_cell(float* f, const float* keep,
   f[i] = __fmul_rn(f[i], keep[mask_index(z, y, x, ksz, ksy)]);
 }
 
-// rhs interior = -0.5h * divergence at cell (z, y, x): an out-of-interior
-// neighbour contributes 0.
+// -0.5h times the divergence of the padded (vx, vy, vz) at interior cell
+// (z, y, x), 1-based padded coordinates, flat index i (row stride sy, plane
+// stride sz). The empty form: an out-of-interior neighbour contributes 0.
+// MASKED, the obstacle form: each neighbour weighted by its fluid_i (fl at
+// mask index m, strides fsz/fsy; 0 outside the interior), the result times
+// the cell's own (ops/project.divergence, operation for operation). The
+// resident and streamed projections and the step's stats (stats.cu) all
+// take their divergence from here, so they agree bit for bit.
+template <bool MASKED>
+__device__ __forceinline__ float divergence_at(
+    const float* vx, const float* vy, const float* vz, const float* fl,
+    long m, int fsz, int fsy, long i, long sy, long sz, int D, int H, int W,
+    float neg_half_h, int z, int y, int x) {
+  float d;
+  if constexpr (!MASKED) {
+    d = __fsub_rn(x < W ? vx[i + 1] : 0.0f, x > 1 ? vx[i - 1] : 0.0f);
+    d = __fadd_rn(d, y < H ? vy[i + sy] : 0.0f);
+    d = __fsub_rn(d, y > 1 ? vy[i - sy] : 0.0f);
+    d = __fadd_rn(d, z < D ? vz[i + sz] : 0.0f);
+    d = __fsub_rn(d, z > 1 ? vz[i - sz] : 0.0f);
+    return __fmul_rn(neg_half_h, d);
+  }
+  d = __fsub_rn(__fmul_rn(vx[i + 1], nb(x < W, fl, m + 1)),
+                __fmul_rn(vx[i - 1], nb(x > 1, fl, m - 1)));
+  d = __fadd_rn(d, __fmul_rn(vy[i + sy], nb(y < H, fl, m + fsy)));
+  d = __fsub_rn(d, __fmul_rn(vy[i - sy], nb(y > 1, fl, m - fsy)));
+  d = __fadd_rn(d, __fmul_rn(vz[i + sz], nb(z < D, fl, m + fsz)));
+  d = __fsub_rn(d, __fmul_rn(vz[i - sz], nb(z > 1, fl, m - fsz)));
+  return __fmul_rn(__fmul_rn(neg_half_h, d), fl[m]);
+}
+
+// rhs interior = -0.5h * divergence at cell (z, y, x), the empty form.
 __device__ __forceinline__ void divergence_cell(const float* vx,
                                                 const float* vy,
                                                 const float* vz, float* rhs,
@@ -135,16 +165,11 @@ __device__ __forceinline__ void divergence_cell(const float* vx,
   const long sy = W + 2;
   const long sz = static_cast<long>(H + 2) * (W + 2);
   const long i = z * sz + y * sy + x;
-  float d = __fsub_rn(x < W ? vx[i + 1] : 0.0f, x > 1 ? vx[i - 1] : 0.0f);
-  d = __fadd_rn(d, y < H ? vy[i + sy] : 0.0f);
-  d = __fsub_rn(d, y > 1 ? vy[i - sy] : 0.0f);
-  d = __fadd_rn(d, z < D ? vz[i + sz] : 0.0f);
-  d = __fsub_rn(d, z > 1 ? vz[i - sz] : 0.0f);
-  rhs[i] = __fmul_rn(neg_half_h, d);
+  rhs[i] = divergence_at<false>(vx, vy, vz, nullptr, 0, 0, 0, i, sy, sz, D,
+                                H, W, neg_half_h, z, y, x);
 }
 
-// The obstacle form: neighbours weighted by their fluid_i, then times the
-// cell's own fluid_i.
+// The obstacle form.
 __device__ __forceinline__ void divergence_masked_cell(
     const float* vx, const float* vy, const float* vz, const float* fl,
     int fsz, int fsy, float* rhs, int D, int H, int W, float neg_half_h,
@@ -152,14 +177,9 @@ __device__ __forceinline__ void divergence_masked_cell(
   const long sy = W + 2;
   const long sz = static_cast<long>(H + 2) * (W + 2);
   const long i = z * sz + y * sy + x;
-  const long m = mask_index(z, y, x, fsz, fsy);
-  float d = __fsub_rn(__fmul_rn(vx[i + 1], nb(x < W, fl, m + 1)),
-                      __fmul_rn(vx[i - 1], nb(x > 1, fl, m - 1)));
-  d = __fadd_rn(d, __fmul_rn(vy[i + sy], nb(y < H, fl, m + fsy)));
-  d = __fsub_rn(d, __fmul_rn(vy[i - sy], nb(y > 1, fl, m - fsy)));
-  d = __fadd_rn(d, __fmul_rn(vz[i + sz], nb(z < D, fl, m + fsz)));
-  d = __fsub_rn(d, __fmul_rn(vz[i - sz], nb(z > 1, fl, m - fsz)));
-  rhs[i] = __fmul_rn(__fmul_rn(neg_half_h, d), fl[m]);
+  rhs[i] = divergence_at<true>(vx, vy, vz, fl, mask_index(z, y, x, fsz, fsy),
+                               fsz, fsy, i, sy, sz, D, H, W, neg_half_h, z, y,
+                               x);
 }
 
 // v -= grad p at cell (z, y, x) of each component, then its ghost faces.

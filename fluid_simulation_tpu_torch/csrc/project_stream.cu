@@ -54,24 +54,10 @@ __global__ void div_packed_kernel(const float* __restrict__ vx,
   const long sz = static_cast<long>(H + 2) * (W + 2);
   const long i = (z + 1) * sz + (y + 1) * sy + (x + 1);
   const long q = (static_cast<long>(z) * H + y) * W + x;
-  float d;
-  if (!MASKED) {
-    d = __fsub_rn(x < W - 1 ? vx[i + 1] : 0.0f, x > 0 ? vx[i - 1] : 0.0f);
-    d = __fadd_rn(d, y < H - 1 ? vy[i + sy] : 0.0f);
-    d = __fsub_rn(d, y > 0 ? vy[i - sy] : 0.0f);
-    d = __fadd_rn(d, z < D - 1 ? vz[i + sz] : 0.0f);
-    d = __fsub_rn(d, z > 0 ? vz[i - sz] : 0.0f);
-    rhs[q] = __fmul_rn(neg_half_h, d);
-    return;
-  }
-  const long m = fst::mask_index(z + 1, y + 1, x + 1, fsz, fsy);
-  d = __fsub_rn(__fmul_rn(vx[i + 1], fst::nb(x < W - 1, fl, m + 1)),
-                __fmul_rn(vx[i - 1], fst::nb(x > 0, fl, m - 1)));
-  d = __fadd_rn(d, __fmul_rn(vy[i + sy], fst::nb(y < H - 1, fl, m + fsy)));
-  d = __fsub_rn(d, __fmul_rn(vy[i - sy], fst::nb(y > 0, fl, m - fsy)));
-  d = __fadd_rn(d, __fmul_rn(vz[i + sz], fst::nb(z < D - 1, fl, m + fsz)));
-  d = __fsub_rn(d, __fmul_rn(vz[i - sz], fst::nb(z > 0, fl, m - fsz)));
-  rhs[q] = __fmul_rn(__fmul_rn(neg_half_h, d), fl[m]);
+  const long m = MASKED ? fst::mask_index(z + 1, y + 1, x + 1, fsz, fsy) : 0;
+  rhs[q] = fst::divergence_at<MASKED>(vx, vy, vz, fl, m, fsz, fsy, i, sy, sz,
+                                      D, H, W, neg_half_h, z + 1, y + 1,
+                                      x + 1);
 }
 
 // out: (3, D, H, W), the projected interiors of vx, vy, vz

@@ -69,6 +69,9 @@ show which kernels carried it:
 - ``lerpcost_pass``          (kernels/lerpcost.py)        one per degrade
   variant of K3's stacked x pass on an index plane
   (``tools/exp_lerpcost.py``; no route)
+- ``step_stats``             (kernels/stats.py)           one per step with
+  either statistic on (``div_stats``, ``step_stats``): the density sum and
+  the largest |divergence| in one pass over the fields
 
 ``PLAIN`` counts calls that the step routes to a kernel's plain version
 instead, one per call:
@@ -92,7 +95,8 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "rbgs_solve_cpack": 0, "rbgs_solve_cpack_stream": 0,
             "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0,
             "dma_stream": 0, "transpose": 0, "strided_copy": 0,
-            "lerp_pass": 0, "rbgs_solve_mxu": 0, "lerpcost_pass": 0}
+            "lerp_pass": 0, "rbgs_solve_mxu": 0, "lerpcost_pass": 0,
+            "step_stats": 0}
 
 
 PLAIN = {"trilinear_gather": 0}

@@ -97,6 +97,8 @@ SIGNATURES = {
     + (_P,),
     "fst_rbgs_half_mxu": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_lerpcost_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fst_step_stats": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                       _F, _I, _I, _P),
     # no-ops with the signatures of fst_probe_add1 and fst_trilinear_gather
     # (tools/exp_overhead.py's host split)
     "fst_probe_noop": (_P, _P, _I, _P),

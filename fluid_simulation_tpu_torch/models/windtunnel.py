@@ -17,16 +17,16 @@ cell from the pre-diffusion ``buffer``), so it is not computed.
 Devices. ``WindTunnel`` and ``init_state`` put the state on the card unless
 the caller asks for ``device="cpu"``. On the CPU every stage is plain torch.
 On a CUDA device with ``use_pallas`` the solves, projections, split
-advection, padding and vorticity confinement run the hand-written kernels
-(``kernels/``), in empty and obstacle scenes; big grids stream their solves
-and projections (``kernels/linsolve_stream.py``); compat and fast advection
-with ``advect_window > 0`` sample through the trilinear kernel
-(``kernels/advect_compat.py``), and split ignores the window, as in the JAX
-package; the fused three-field diffusion (``kernels/linsolve.rbgs_solve3``)
-is gated off by ``_diffuse3_applicable``, as there. A configuration whose
-kernels are not ported yet raises ``NotImplementedError`` instead of running
-plain torch. With ``use_pallas=False`` the step is plain torch on any
-device.
+advection, padding, vorticity confinement and the step's statistics run the
+hand-written kernels (``kernels/``), in empty and obstacle scenes; big grids
+stream their solves and projections (``kernels/linsolve_stream.py``);
+compat and fast advection with ``advect_window > 0`` sample through the
+trilinear kernel (``kernels/advect_compat.py``), and split ignores the
+window, as in the JAX package; the fused three-field diffusion
+(``kernels/linsolve.rbgs_solve3``) is gated off by ``_diffuse3_applicable``,
+as there. A configuration whose kernels are not ported yet raises
+``NotImplementedError`` instead of running plain torch. With
+``use_pallas=False`` the step is plain torch on any device.
 
 The step is pure: it returns new tensors and leaves its inputs unchanged
 (the pre-diffusion save ``pvx`` and the post-inlet ``buffer`` are read again
@@ -51,12 +51,14 @@ from fluid_simulation_tpu_torch.kernels.project import (
     project_empty, project_masked)
 from fluid_simulation_tpu_torch.kernels.project_stream import (
     project_stream, project_stream_masked)
+from fluid_simulation_tpu_torch.kernels.stats import (
+    step_stats, step_stats_plain)
 from fluid_simulation_tpu_torch.kernels.vorticity import (
     confinement, confinement_plain)
 from fluid_simulation_tpu_torch.ops.advect import advect, backtrace, gather
 from fluid_simulation_tpu_torch.ops.linsolve import (
     as_scalar, diffuse, diffusion_coeffs)
-from fluid_simulation_tpu_torch.ops.project import divergence, grid_h, project
+from fluid_simulation_tpu_torch.ops.project import project
 from fluid_simulation_tpu_torch.scene.masks import SceneMasks, build_masks
 from fluid_simulation_tpu_torch.utils.profiling import span, timed_span
 
@@ -277,16 +279,13 @@ def _step(state: FluidState, masks: SceneMasks,
                           p.empty_scene, window)
 
     with span("fst.stats"):
-        nan = torch.tensor(float("nan"), dtype=torch.float32,
-                           device=vx.device)
-        if p.div_stats:
-            h = grid_h(p.width, p.height, p.depth)
-            max_div = divergence(vx, vy, vz, masks, h).abs().max().to(
-                torch.float32)
+        on = dict(divergence_on=p.div_stats, density_on=p.step_stats)
+        if p.use_pallas:
+            density_sum, max_div = step_stats(vx, vy, vz, dens, masks,
+                                              p.empty_scene, **on)
         else:
-            max_div = nan
-        density_sum = (torch.sum(dens, dtype=torch.float32)
-                       if p.step_stats else nan)
+            density_sum, max_div = step_stats_plain(vx, vy, vz, dens, masks,
+                                                    **on)
     return (FluidState(vx, vy, vz, dens),
             StepStats(density_sum=density_sum, max_divergence=max_div))
 

@@ -8,9 +8,10 @@ is swapped for a stub that checks what the real launcher would be given
 result. The production steps then run through the real wrappers: the
 empty split and compat steps, obstacle scenes and no-slip walls with
 vorticity, compat and fast advection with a window, the fused three-field
-diffusion with its gate forced on, and the launch counters must show which
-kernels ran, per step. Unported configurations must raise on the CUDA
-branch.
+diffusion with its gate forced on, the step's statistics (one launch a
+step, no plain reduction, no host-to-device tensor), and the launch
+counters must show which kernels ran, per step. Unported configurations
+must raise on the CUDA branch.
 """
 
 import ctypes
@@ -27,7 +28,7 @@ from fluid_simulation_tpu_torch.kernels import (
     linsolve_blocked as k22c,
     linsolve_cpack as k22b, linsolve_mxu as k23m, linsolve_stream as k11,
     linsolve_sweep as k15, prestep as k22a, probe as k23, project as k2,
-    project_stream as k14, reset_launches, sweepcost as k23s,
+    project_stream as k14, reset_launches, stats as kst, sweepcost as k23s,
     transpose as k23t, vorticity as k10)
 from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
@@ -207,6 +208,21 @@ def stub_grad(vx, vy, vz, fpre, fluid_i, out):
     out.copy_(k14.gradient_packed_plain(vx, vy, vz, fpre, fluid_i))
 
 
+def stub_stats(vx, vy, vz, dens, fluid_i, out, divergence_on, density_on):
+    for t in (vx, vy, vz, dens):
+        _operand(t, vx.shape)
+    _operand(out, (2,))
+    if fluid_i is not None:
+        _mask(fluid_i, [n - 2 for n in vx.shape])
+    assert divergence_on or density_on
+    _distinct(vx, vy, vz, dens, out)
+    # the kernel's divergence is div_packed's (kernels/project.py)
+    nan = float("nan")
+    out[0] = torch.sum(dens, dtype=torch.float32) if density_on else nan
+    out[1] = (k2.divergence_plain(vx, vy, vz, fluid_i).abs().max()
+              if divergence_on else nan)
+
+
 def stub_sweep_packed(ins, rp, kp, outs, f1, b, a, c, wall_mode):
     for t in ins + outs + (f1,):
         assert t.dtype == torch.float32 and t.is_contiguous()
@@ -360,7 +376,8 @@ def card(monkeypatch):
                             (k23t, "_launch_copy", stub_strided_copy),
                             (k3, "_launch_pass", stub_lerp_pass),
                             (k23m, "_launch", stub_mxu),
-                            (k24, "_launch", stub_lerpcost)):
+                            (k24, "_launch", stub_lerpcost),
+                            (kst, "_launch", stub_stats)):
         monkeypatch.setattr(mod, name, stub)
     reset_launches()
     yield
@@ -370,6 +387,12 @@ def card(monkeypatch):
 def _counts(**nonzero):
     """LAUNCHES as it should read, from its nonzero entries."""
     return {k: nonzero.get(k, 0) for k in LAUNCHES}
+
+
+def _step_counts(**nonzero):
+    """``_counts`` of one step, which computes its statistics in one
+    ``step_stats`` launch (both are on by default)."""
+    return _counts(step_stats=1, **nonzero)
 
 
 def _random_state(p, seed=0):
@@ -412,7 +435,7 @@ def _run_two_steps(p, obstacles=None, zero_edges=False):
 def test_production_step_launch_counts(card, mode, counts):
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode)
     per_step = _run_two_steps(p)
-    assert per_step == _counts(**dict(zip(
+    assert per_step == _step_counts(**dict(zip(
         ("rbgs_solve", "project_empty", "advect_split", "pad_bounds"),
         counts)))
 
@@ -441,7 +464,7 @@ def test_obstacle_and_vorticity_step_launch_counts(card, mode, scene, change,
     a keep solve counts as rbgs_solve_keep, never as rbgs_solve."""
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode, **change)
     obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
-    assert _run_two_steps(p, obs) == _counts(**nonzero)
+    assert _run_two_steps(p, obs) == _step_counts(**nonzero)
 
 
 # the JAX bench's big configs (bench.py:227-263): interior (W, H, D)
@@ -487,7 +510,8 @@ def test_streamed_step_launch_counts(card, monkeypatch, streamed, scene,
     else:
         want = dict(rbgs_solve=3, project_empty=2, advect_split=2,
                     pad_bounds=2)
-    assert _run_two_steps(p, obs, zero_edges=True) == _counts(**want, **vort)
+    assert _run_two_steps(p, obs, zero_edges=True) == _step_counts(
+        **want, **vort)
 
 
 def test_plain_reference_run_launches_nothing(card):
@@ -535,7 +559,7 @@ def test_window_step_launch_counts(card, mode, scene, nonzero):
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode,
                   advect_window=1)
     obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
-    assert _run_two_steps(p, obs) == _counts(**nonzero)
+    assert _run_two_steps(p, obs) == _step_counts(**nonzero)
 
 
 @pytest.mark.parametrize("mode", ["compat", "fast"])
@@ -584,7 +608,7 @@ def test_forced_solve3_step(card, monkeypatch, scene, change):
             solves = dict(rbgs_solve3=1, project_masked=2,
                           pad_bounds_masked=2) if scene else dict(
                 rbgs_solve3=1, project_empty=2, pad_bounds=2)
-            assert {k: n / 2 for k, n in LAUNCHES.items()} == _counts(
+            assert {k: n / 2 for k, n in LAUNCHES.items()} == _step_counts(
                 advect_split=2, **solves)
     for a, b in zip(*states):
         assert torch.equal(a, b)
@@ -595,8 +619,95 @@ def test_forced_solve3_keeps_the_streamed_route(card, monkeypatch):
     monkeypatch.setattr(wtm, "_diffuse3_applicable", lambda p: True)
     monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
     p = SimParams(width=W, height=H, depth=D, acc=5, mode="split")
-    assert _run_two_steps(p, zero_edges=True) == _counts(
+    assert _run_two_steps(p, zero_edges=True) == _step_counts(
         rbgs_solve_stream=3, project_stream=2, advect_split=2, pad_bounds=4)
+
+
+def _refuse_plain_stats(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain statistics ran on the card's branch")
+    monkeypatch.setattr(kst, "step_stats_plain", refuse)
+    monkeypatch.setattr(wtm, "step_stats_plain", refuse)
+
+
+@pytest.mark.parametrize("mode", ["split", "compat"])
+@pytest.mark.parametrize("scene", [None, SPHERE])
+def test_step_stats_are_one_launch(card, monkeypatch, mode, scene):
+    """A card step computes its statistics in one ``step_stats`` launch and
+    never in the plain reductions: the empty scene takes the kernel's
+    in-bounds form (no ``fluid_i``), an obstacle scene the masked one. The
+    statistics equal the plain step's."""
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    wt = WindTunnel(p, obstacles=obs, device=CPU)
+    wt.state = start = FluidState(*_random_state(p))
+    plain_p = wt.params.replace(use_pallas=False)
+    _, want = simulation_step(start, wt.masks, plain_p)
+    seen = []
+
+    def launch(vx, vy, vz, dens, fluid_i, out, *flags):
+        seen.append(fluid_i)
+        stub_stats(vx, vy, vz, dens, fluid_i, out, *flags)
+
+    monkeypatch.setattr(kst, "_launch", launch)
+    _refuse_plain_stats(monkeypatch)
+    got = wt.step()
+    assert LAUNCHES["step_stats"] == 1
+    assert (seen[0] is None) == (scene is None) and len(seen) == 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == ()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("div_stats,step_stats", [
+    (True, True), (True, False), (False, True), (False, False)])
+def test_step_stats_make_no_host_to_device_tensor(card, monkeypatch,
+                                                  div_stats, step_stats):
+    """Inside ``fst.stats`` no tensor is made from host data on the device
+    (a copy from pageable memory would sync the stream): a statistic that
+    is off is a NaN from a device fill, and with both off no kernel runs."""
+    inside = []
+    real_span, real_tensor = wtm.span, torch.tensor
+
+    def span(name):
+        if name != "fst.stats":
+            return real_span(name)
+        return _flagged(inside, real_span(name))
+
+    def tensor(*args, **kwargs):
+        if inside and kwargs.get("device") is not None:
+            raise AssertionError("a host-to-device tensor in fst.stats")
+        return real_tensor(*args, **kwargs)
+
+    monkeypatch.setattr(wtm, "span", span)
+    monkeypatch.setattr(torch, "tensor", tensor)
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode="split",
+                  div_stats=div_stats, step_stats=step_stats)
+    wt = WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4,
+                                            4, 2), device=CPU)
+    wt.state = FluidState(*_random_state(p))
+    _refuse_plain_stats(monkeypatch)
+    got = wt.step()
+    assert not inside
+    assert LAUNCHES["step_stats"] == int(div_stats or step_stats)
+    for on, stat in ((step_stats, got.density_sum),
+                     (div_stats, got.max_divergence)):
+        assert bool(torch.isfinite(stat)) == on
+
+
+class _flagged:
+    """A context manager that marks ``flag`` while ``inner`` is open."""
+
+    def __init__(self, flag, inner):
+        self.flag, self.inner = flag, inner
+
+    def __enter__(self):
+        self.flag.append(True)
+        return self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        self.flag.pop()
+        return self.inner.__exit__(*exc)
 
 
 def test_variant_wrappers_refuse_bad_operands(card):
@@ -755,12 +866,13 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     stack, plane = torch.stack([vx, vy]).reshape(2, -1, W + 2), g.reshape(
         -1, W + 2) * 4.0 + 8.0
     out32 = k24.lerpcost_pass(stack, plane, "full")
+    out33 = kst.step_stats(vx, vy, vz, g, m)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
               out13, *out14, out15, out16, *out17, out18, *out19, *out20,
               out21, out22, out23, out24, out25, out26, out27, out28, out29,
-              out30, out31, out32):
+              out30, out31, out32, *out33):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -805,6 +917,9 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
                                                  (0, 1, 0)))
     assert torch.equal(out31, k1.rbgs_solve_plain(0, vx, g, 0.5, 4.0, 2))
     assert torch.equal(out32, k24.lerpcost_pass_plain(stack, plane, "full"))
+    # the statistics: the divergence bitwise, the sum the plain one
+    for got, want in zip(out33, kst.step_stats_plain(vx, vy, vz, g, m)):
+        assert torch.equal(got, want)
     # every wrapper once; the colour-packed solves' sweep 1 adds one K1
     # keep solve and one blocked sweep
     assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
