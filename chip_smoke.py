@@ -70,15 +70,12 @@ final ``ok`` line):
     (solids exactly 0, equal to the window-0 twin);
 12. fast with ``advect_window=1`` against fast without, 100 steps: bitwise
     equal states, the residual bounds, ms/step of both;
-13. split with the fused three-field diffusion forced on against the
-    default (gated off), empty and sphere, 100 steps: bitwise equal
-    states, one ``rbgs_solve3`` per step, ms/step of both;
-14. the sharded solve's sweep kernels (B15 packed, B20 padded) against
+13. the sharded solve's sweep kernels (B15 packed, B20 padded) against
     their plain versions, bitwise, on the 256^3 slab of two ranks
     (128x256x256), the 128x64x64 slab of two (32x64x128) and a ragged
     4x7x13 slab, with the bench spheres' keep masks, random 0/1 solids and
     no-slip walls; their times and bounds at the 256^3 slab;
-15. ``ShardedWindTunnel(..., devices=["cuda:0"] * n)``, every rank on the
+14. ``ShardedWindTunnel(..., devices=["cuda:0"] * n)``, every rank on the
     one card: 256^3 split over 2 slabs for 4 steps, empty and with the
     bench sphere (150 packed sweeps per step and no other kernel, residual
     bounds, solids exactly 0, the obstacle-blind guard, within
@@ -87,7 +84,7 @@ final ``ok`` line):
     128x64x64 split with the bench sphere over 4 slabs for 20 steps
     against the single-card run; one step of the kernel path against
     ``use_pallas=False``, bitwise;
-16. the retired kernels of ``tools/`` (``retired_kernels``): one call each
+15. the retired kernels of ``tools/`` (``retired_kernels``): one call each
     of the fused prestep (B22a), empty and with the bench sphere, and of
     the blocked solve (B22c), with the counts set to 0 just before and read
     just after (1, 1 and ``acc``, no other counter); the prestep against
@@ -97,7 +94,7 @@ final ``ok`` line):
     chain's and its bound; the blocked solve against its plain version,
     bitwise, at 128x64x64 and 256^3 with the spheres' keep masks, its
     times and bound;
-17. the colour-packed solve (B22b, ``cpack``): one call of each entry
+16. the colour-packed solve (B22b, ``cpack``): one call of each entry
     point with the counts set to 0 just before and read just after (the
     resident solve with the bench sphere's keep: one K1 keep solve and one
     ``rbgs_solve_cpack``; the streamed one at acc 15: one blocked sweep
@@ -107,14 +104,14 @@ final ``ok`` line):
     and no-slip walls: each entry point against its plain version, the
     other entry point and K1, bitwise; per call at each shape its event
     and device ms, device ops and bound beside K1 keep's;
-18. the launch-overhead probe (B23's ``exp_overhead``, ``overhead``): the
+17. the launch-overhead probe (B23's ``exp_overhead``, ``overhead``): the
     tiny kernel against its plain version, bitwise; one eager iteration of
     every probe row with the counts set to 0 just before and read just
     after; then every row eager and replayed from a CUDA graph (replay
     bitwise to eager), n = 50, in µs per iteration; then the host split
     of one ``add_one`` and one K9 call at 128x64x64 into the parts of
     ``_build.launch`` and its wrapper;
-19. the streaming-ceiling and sweep-cost probes (B23's ``exp_hbm``,
+18. the streaming-ceiling and sweep-cost probes (B23's ``exp_hbm``,
     ``exp_hbm2``, ``exp_sweepcost``, ``streamcost``): one call each of the
     stream kernel and of a sweep-cost variant with the counts set to 0 just
     before and read just after (1 and 1, nothing else); every form of the
@@ -126,7 +123,7 @@ final ``ok`` line):
     z-block), the same with misaligned operands, and 256^3; then the three
     probes' rows at 256^3 and ``exp_sweepcost``'s at 512x256x256, CUDA-graph
     replays;
-20. the DMA-issue, transpose and tensor-core probes (B23's ``exp_dma``,
+19. the DMA-issue, transpose and tensor-core probes (B23's ``exp_dma``,
     ``exp_transpose``, ``exp_solve_mxu``, ``probes_last``): one call each of
     the stream, the transpose, the strided copy, K3's single pass and the
     tensor-core solve with the counts set to 0 just before and read just
@@ -143,7 +140,7 @@ final ``ok`` line):
     bounds, store_strided beside ``a * 2``; then the three probes at 256^3
     (dma, boundary; probe3's bytes-bound view), their own shapes and
     128x64x64 (mxu);
-21. the degrade variants of K3's stacked x pass (B24's ``exp_lerpcost``,
+20. the degrade variants of K3's stacked x pass (B24's ``exp_lerpcost``,
     ``lerpcost``): one call with the counts set to 0 just before and read
     just after (1, nothing else), on a ragged (3, 37, 200) stack with a
     (37, 198) index plane over [-1, 200] and at 256^3 x-geometry (3 x
@@ -154,7 +151,7 @@ final ``ok`` line):
     random stack and plane, and ``torch.nn.functional.grid_sample``
     beside it, held to ``full`` within 1e-3; then the probe's rows at
     256^3 (the tool's constant stack 0.5);
-22. the step's statistics (``stats``): the kernel against its plain
+21. the step's statistics (``stats``): the kernel against its plain
     version at 128x64x64 and 512x256x256, empty and with the bench sphere,
     max_divergence bitwise, the density sum within 2e-6 of a float64 sum
     and the same bits over 5 calls, statistics that are off NaN, a NaN or
@@ -162,7 +159,7 @@ final ``ok`` line):
     plain version's and its bound; a split sphere run with both
     statistics on, one ``step_stats`` launch a step, its statistics
     against the plain path's over 3 steps;
-23. ms/step of the kernel path and the plain path, timed with CUDA events.
+22. ms/step of the kernel path and the plain path, timed with CUDA events.
 
 ``--only PHASE ...`` runs the build and the named phases (keys in
 ``PHASES``) and prints no result lines.
@@ -173,7 +170,6 @@ JAX.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import subprocess
@@ -602,7 +598,7 @@ class Smoke:
             confinement, confinement_plain)
         from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
         from fluid_simulation_tpu_torch.scene.masks import build_masks
-        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
 
         rng = np.random.default_rng(SEED + 1)
         small = np.zeros((7, 9, 15), np.float32)
@@ -694,7 +690,7 @@ class Smoke:
 
     def sphere_split(self):
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
         wt = WindTunnel(SimParams(mode="split", div_stats=False,
                                   step_stats=False),
                         obstacles=flagship_sphere(), device="cuda")
@@ -706,7 +702,7 @@ class Smoke:
 
     def sphere_compat(self):
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
         wt = WindTunnel(SimParams(div_stats=False, step_stats=False),
                         obstacles=flagship_sphere(), device="cuda")
         self.run_path(wt, 20, "sphere compat", rbgs_solve_keep=3,
@@ -760,7 +756,7 @@ class Smoke:
             divergence_plain, project_empty, project_masked)
         from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
         from fluid_simulation_tpu_torch.scene.masks import build_masks
-        from fluid_simulation_tpu_torch.utils.profiling import big_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import big_sphere
 
         rng = np.random.default_rng(SEED + 2)
         small = np.zeros((12, 9, 15), np.float32)
@@ -930,7 +926,7 @@ class Smoke:
     def big_grids(self):
         """The bench's six big configs through the entry point."""
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        from fluid_simulation_tpu_torch.utils.profiling import big_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import big_sphere
         for W, H, D, steps in BIG:
             p = SimParams(width=W, height=H, depth=D, mode="split",
                           div_stats=False, step_stats=False)
@@ -976,7 +972,7 @@ class Smoke:
             project_empty, project_masked)
         from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
         from fluid_simulation_tpu_torch.scene.masks import build_masks
-        from fluid_simulation_tpu_torch.utils.profiling import big_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import big_sphere
 
         torch = self.torch
         rng = np.random.default_rng(SEED + 3)
@@ -1050,17 +1046,6 @@ class Smoke:
               f"{ta2:.4f}), {nb} {(tb1 + tb2) / 2:.4f} ms/step ({tb1:.4f}, "
               f"{tb2:.4f})", flush=True)
 
-    @contextlib.contextmanager
-    def solve3_gate(self):
-        """The step's fused three-field diffusion forced on."""
-        from fluid_simulation_tpu_torch.models import windtunnel as wtm
-        gate = wtm._diffuse3_applicable
-        wtm._diffuse3_applicable = lambda p: True
-        try:
-            yield
-        finally:
-            wtm._diffuse3_applicable = gate
-
     def variant_kernels(self):
         """K9, K5, K1 unpacked and K8 against their plain versions at the
         128x64x64 shapes; K9 also beside grid_sample."""
@@ -1078,7 +1063,7 @@ class Smoke:
         from fluid_simulation_tpu_torch.scene.masks import build_masks
         from fluid_simulation_tpu_torch.tools.exp_transpose import (
             measure_body)
-        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
 
         torch = self.torch
         rng = np.random.default_rng(SEED + 4)
@@ -1175,6 +1160,7 @@ class Smoke:
         self.bound("rbgs_solve3", (*fs, *ps_i, m.keep_vel[1:-1, 1:-1, 1:-1],
                                    *fs),
                    3 * 15 * OPS_PER_CELL["rbgs_solve_keep"] * n, False)
+        self.kern["rbgs_solve3"]["launches"] = 0   # no route
 
         # K1 unpacked: a random 0/1 keep, 0 on parts of every ghost face and
         # on ghost edges and corners
@@ -1214,7 +1200,7 @@ class Smoke:
         """Compat with advect_window=1 through the entry point: the parity
         gate, the gathers' counts, bitwise equal to the window-0 run."""
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
+        from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
         base = SimParams(div_stats=False, step_stats=False)
         wt = WindTunnel(base.replace(advect_window=1), device="cuda")
         self.run_path(wt, 100, "compat window 3/2/4 per step", rbgs_solve=3,
@@ -1248,33 +1234,6 @@ class Smoke:
         self.ms_ab("fast 128x64x64", (("window 0", wt0.step),
                                       ("window 1", wt.step)), 20)
 
-    def solve3_ab(self):
-        """Split with the fused three-field diffusion forced on against the
-        default (gated off), as the JAX package measured it on its own
-        hardware; the gate stays off."""
-        from fluid_simulation_tpu_torch import SimParams, WindTunnel
-        from fluid_simulation_tpu_torch.utils.profiling import flagship_sphere
-        p = SimParams(mode="split", div_stats=False, step_stats=False)
-        for label, obs in (("split 128x64x64", None),
-                           ("sphere split 128x64x64", flagship_sphere())):
-            counts = (dict(project_empty=2, pad_bounds=2) if obs is None else
-                      dict(project_masked=2, pad_bounds_masked=2))
-            forced = WindTunnel(p, obstacles=obs, device="cuda")
-            with self.solve3_gate():
-                self.run_path(forced, 100, f"{label} solve3 forced",
-                              rbgs_solve3=1, advect_split=2, **counts)
-            default = WindTunnel(p, obstacles=obs, device="cuda")
-            default.simulate(100)
-            self.same_state(forced.state, default.state,
-                            f"{label} solve3 forced vs default, 100 steps")
-
-            def forced_step():
-                with self.solve3_gate():
-                    forced.step()
-
-            self.ms_ab(label, (("default", default.step),
-                               ("solve3 forced", forced_step)), 50)
-
     def sweep_kernels(self):
         """B15 and B20 against their plain versions: the 256^3 slab of two
         ranks with the bench sphere's keep (rank 1's slab, through the
@@ -1285,7 +1244,7 @@ class Smoke:
         from fluid_simulation_tpu_torch.kernels import linsolve_sweep as ks
         from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
         from fluid_simulation_tpu_torch.scene.masks import build_masks
-        from fluid_simulation_tpu_torch.utils.profiling import (
+        from fluid_simulation_tpu_torch.scene.primitives import (
             big_sphere, flagship_sphere)
 
         torch = self.torch
@@ -1365,8 +1324,9 @@ class Smoke:
             project_empty, project_masked)
         from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
         from fluid_simulation_tpu_torch.scene.masks import build_masks
-        from fluid_simulation_tpu_torch.utils.profiling import (
-            big_sphere, device_profile, flagship_sphere)
+        from fluid_simulation_tpu_torch.scene.primitives import (
+            big_sphere, flagship_sphere)
+        from fluid_simulation_tpu_torch.tools.breakdown import device_profile
 
         torch = self.torch
         rng = np.random.default_rng(SEED + 6)
@@ -1480,9 +1440,8 @@ class Smoke:
         from fluid_simulation_tpu_torch.ops.linsolve import diffusion_coeffs
         from fluid_simulation_tpu_torch.scene.masks import build_masks
         from fluid_simulation_tpu_torch.scene.primitives import (
-            add_sphere, empty_obstacles)
-        from fluid_simulation_tpu_torch.utils.profiling import (
-            big_sphere, device_profile, flagship_sphere)
+            add_sphere, big_sphere, empty_obstacles, flagship_sphere)
+        from fluid_simulation_tpu_torch.tools.breakdown import device_profile
 
         torch = self.torch
         rng = np.random.default_rng(SEED + 8)
@@ -1993,7 +1952,7 @@ class Smoke:
         one card."""
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
         from fluid_simulation_tpu_torch.parallel import ShardedWindTunnel
-        from fluid_simulation_tpu_torch.utils.profiling import (
+        from fluid_simulation_tpu_torch.scene.primitives import (
             big_sphere, flagship_sphere)
 
         torch = self.torch
@@ -2151,7 +2110,7 @@ class Smoke:
         from fluid_simulation_tpu_torch.scene.masks import build_masks
         from fluid_simulation_tpu_torch.scene.primitives import (
             empty_obstacles)
-        from fluid_simulation_tpu_torch.utils.profiling import (
+        from fluid_simulation_tpu_torch.scene.primitives import (
             big_sphere, flagship_sphere)
         torch = self.torch
         rng = np.random.default_rng(SEED)
@@ -2243,7 +2202,7 @@ class Smoke:
 
     def times(self):
         from fluid_simulation_tpu_torch import WindTunnel
-        from fluid_simulation_tpu_torch.utils.profiling import cells
+        from fluid_simulation_tpu_torch.tools.breakdown import cells
         reps = {"split 128x64x64": 50, "compat 128x64x64": 20,
                 "split 256x128x128": 10, "split 128x64x64 sphere": 50,
                 "split 128x64x64 noslip+vorticity": 50}
@@ -2290,8 +2249,6 @@ PHASES = [
     ("compat_window", "compat with advect_window=1, 100 steps",
      "compat_window"),
     ("fast_window", "fast with advect_window=1, 100 steps", "fast_window"),
-    ("solve3_ab", "split with the fused three-field diffusion forced on",
-     "solve3_ab"),
     ("sweep_kernels", "kernels vs plain: the sharded solve's sweeps",
      "sweep_kernels"),
     ("retired_kernels", "kernels vs plain: the fused prestep and the "

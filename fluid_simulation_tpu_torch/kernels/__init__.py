@@ -24,7 +24,8 @@ show which kernels carried it:
 - ``trilinear_gather``       (kernels/advect_compat.py)   one per trilinear
   sample of compat or fast advection with ``advect_window > 0``
 - ``rbgs_solve3``            (kernels/linsolve.py)        one per fused
-  three-field diffusion (gated off in the step, as in the JAX package)
+  three-field diffusion (no route of the step takes it; the JAX package
+  gates it off)
 - ``rbgs_solve_unpacked``    (kernels/linsolve.py)        one per unpacked
   keep solve (``packed=False``; no route of the step takes it)
 - ``advect_split_fused``     (kernels/advect_split.py)    one per advected
@@ -73,14 +74,7 @@ show which kernels carried it:
   either statistic on (``div_stats``, ``step_stats``): the density sum and
   the largest |divergence| in one pass over the fields
 
-``PLAIN`` counts calls that the step routes to a kernel's plain version
-instead, one per call:
-
-- ``trilinear_gather``       (ops/advect.py)              one per trilinear
-  sample of compat or fast advection at ``advect_window`` 0 (4 a step)
-
-These counters are the package's only global state; ``reset_launches``
-clears both.
+These counters are the package's only global state.
 """
 
 LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
@@ -99,10 +93,6 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "step_stats": 0}
 
 
-PLAIN = {"trilinear_gather": 0}
-
-
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PLAIN):
-        for k in counts:
-            counts[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

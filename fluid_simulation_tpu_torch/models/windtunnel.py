@@ -15,18 +15,19 @@ The density diffusion of the reference is dead (advection rewrites every
 cell from the pre-diffusion ``buffer``), so it is not computed.
 
 Devices. ``WindTunnel`` and ``init_state`` put the state on the card unless
-the caller asks for ``device="cpu"``. On the CPU every stage is plain torch.
-On a CUDA device with ``use_pallas`` the solves, projections, split
-advection, padding, vorticity confinement and the step's statistics run the
-hand-written kernels (``kernels/``), in empty and obstacle scenes; big grids
-stream their solves and projections (``kernels/linsolve_stream.py``);
-compat and fast advection with ``advect_window > 0`` sample through the
-trilinear kernel (``kernels/advect_compat.py``), and split ignores the
-window, as in the JAX package; the fused three-field diffusion
-(``kernels/linsolve.rbgs_solve3``) is gated off by ``_diffuse3_applicable``,
-as there. A configuration whose kernels are not ported yet raises
-``NotImplementedError`` instead of running plain torch. With
-``use_pallas=False`` the step is plain torch on any device.
+the caller asks for ``device="cpu"``. This module makes every choice of
+kernel or plain torch in the step; ``ops/`` is plain torch only. With
+``use_pallas`` the solves, projections, split advection, padding,
+vorticity confinement and the step's statistics go through the
+hand-written kernels' wrappers (``kernels/``), in empty and obstacle
+scenes; each wrapper launches on a CUDA tensor and runs its plain version
+on the CPU. With rbgs, big grids stream their solves and projections
+(``_solve_route``); compat and fast advection with ``advect_window > 0``
+sample through the trilinear kernel (``kernels/advect_compat.py``), and
+split ignores the window, as in the JAX package. A configuration whose
+kernels are not ported yet raises ``NotImplementedError`` instead of
+running plain torch. With ``use_pallas=False`` the step is plain torch on
+any device.
 
 The step is pure: it returns new tensors and leaves its inputs unchanged
 (the pre-diffusion save ``pvx`` and the post-inlet ``buffer`` are read again
@@ -42,11 +43,15 @@ import torch
 
 from fluid_simulation_tpu_torch.config import SimParams
 from fluid_simulation_tpu_torch.kernels import _build, linsolve_stream
+from fluid_simulation_tpu_torch.kernels.advect_compat import (
+    trilinear_gather_window)
 from fluid_simulation_tpu_torch.kernels.advect_split import (
     advect_split, advect_split_plain)
 from fluid_simulation_tpu_torch.kernels.bounds import (
     pad_bounds, pad_bounds_plain)
-from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve3
+from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
+from fluid_simulation_tpu_torch.kernels.linsolve_stream import (
+    rbgs_solve_stream)
 from fluid_simulation_tpu_torch.kernels.project import (
     project_empty, project_masked)
 from fluid_simulation_tpu_torch.kernels.project_stream import (
@@ -55,7 +60,8 @@ from fluid_simulation_tpu_torch.kernels.stats import (
     step_stats, step_stats_plain)
 from fluid_simulation_tpu_torch.kernels.vorticity import (
     confinement, confinement_plain)
-from fluid_simulation_tpu_torch.ops.advect import advect, backtrace, gather
+from fluid_simulation_tpu_torch.ops.advect import (
+    advect, backtrace, gather, trilinear_gather)
 from fluid_simulation_tpu_torch.ops.linsolve import (
     as_scalar, diffuse, diffusion_coeffs)
 from fluid_simulation_tpu_torch.ops.project import project
@@ -144,54 +150,56 @@ def _pad_bounds_tail(smp, bs, masks: SceneMasks, p: SimParams):
         return fn(smp, bs, p.wall_mode, **kw)
 
 
+def _solve_route(shape, p: SimParams) -> str:
+    """The route of a phase's rbgs solves: ``"stream"`` on big grids
+    (``linsolve_stream.streams``), ``"resident"`` otherwise, both with
+    ``use_pallas``; ``"plain"`` for the composable ops (other solvers, or
+    the plain path)."""
+    if not (p.use_pallas and p.solver == "rbgs"):
+        return "plain"
+    return "stream" if linsolve_stream.streams(shape) else "resident"
+
+
+def _diffuse_vel_dispatch(vx, vy, vz, pvx, pvy, pvz, masks: SceneMasks,
+                          p: SimParams):
+    """The step's three velocity diffusions (simulation.cpp:115-117): the
+    streamed or the resident solve (kernel 1), or ``diffuse``."""
+    vel_diff = p.visc if p.use_visc_for_velocity else p.diff
+    fields = ((1, vx, pvx), (2, vy, pvy), (3, vz, pvz))
+    route = _solve_route(vx.shape, p)
+    if route == "plain":
+        return tuple(diffuse(b, v, pv, masks, p.dt, vel_diff, acc=p.acc,
+                             solver=p.solver, wall_mode=p.wall_mode,
+                             empty_scene=p.empty_scene)
+                     for b, v, pv in fields)
+    a, c = diffusion_coeffs(p.width, p.height, p.depth, p.dt, vel_diff)
+    keep = None if p.empty_scene else masks.keep_vel
+    solve = rbgs_solve_stream if route == "stream" else rbgs_solve
+    return tuple(solve(b, v, pv, a, c, acc=p.acc, wall_mode=p.wall_mode,
+                       keep=keep) for b, v, pv in fields)
+
+
 def _project_dispatch(vx, vy, vz, masks: SceneMasks, p: SimParams):
-    """Projection with rbgs and ``use_pallas``: on big grids
-    (``linsolve_stream.streams``) the streamed kernels and the pad_bounds
-    tail, else kernel 2 for empty scenes and kernel 6 for obstacle scenes;
-    the composable ops otherwise (other solvers, or the plain path).
+    """Projection: the streamed kernels and the pad_bounds tail, or kernel
+    2 for empty scenes and kernel 6 for obstacle scenes, or ``project``.
     Returns (vx, vy, vz)."""
-    if p.use_pallas and p.solver == "rbgs":
-        if linsolve_stream.streams(vx.shape):
-            if p.empty_scene:
-                smp = project_stream(vx, vy, vz, acc=p.acc,
-                                     wall_mode=p.wall_mode)
-            else:
-                smp = project_stream_masked(vx, vy, vz, masks.fluid_i,
-                                            acc=p.acc, wall_mode=p.wall_mode)
-            return _pad_bounds_tail(smp, (1, 2, 3), masks, p)
+    route = _solve_route(vx.shape, p)
+    if route == "stream":
+        if p.empty_scene:
+            smp = project_stream(vx, vy, vz, acc=p.acc,
+                                 wall_mode=p.wall_mode)
+        else:
+            smp = project_stream_masked(vx, vy, vz, masks.fluid_i,
+                                        acc=p.acc, wall_mode=p.wall_mode)
+        return _pad_bounds_tail(smp, (1, 2, 3), masks, p)
+    if route == "resident":
         if p.empty_scene:
             return project_empty(vx, vy, vz, acc=p.acc, wall_mode=p.wall_mode)
         return project_masked(vx, vy, vz, masks.fluid_i,
                               masks.keep_vel[1:-1, 1:-1, 1:-1], acc=p.acc,
                               wall_mode=p.wall_mode)
-    out = project(vx, vy, vz, masks, acc=p.acc, solver=p.solver,
-                  wall_mode=p.wall_mode, use_pallas=p.use_pallas,
-                  empty_scene=p.empty_scene)
-    return out[0], out[1], out[2]
-
-
-def _diffuse3_applicable(p: SimParams) -> bool:
-    """The fused three-field diffusion (``rbgs_solve3``) is off in the
-    step, as ``_diffuse3_applicable`` is in the JAX package, which measured
-    it neutral on its own hardware. It stays tested, and ``chip_smoke.py``
-    times it on the card with this gate forced on."""
-    return False
-
-
-def _diffuse_vel_dispatch(vx, vy, vz, pvx, pvy, pvz, masks: SceneMasks,
-                          p: SimParams, vel_diff: float, kw: dict):
-    """The step's three velocity diffusions (simulation.cpp:115-117): one
-    ``rbgs_solve3`` call where ``_diffuse3_applicable`` allows it (rbgs,
-    ``use_pallas``, and the resident route: big grids stream their solves),
-    else three ``diffuse`` calls. Both give the same values."""
-    if (_diffuse3_applicable(p) and p.use_pallas and p.solver == "rbgs"
-            and not linsolve_stream.streams(vx.shape)):
-        a, c = diffusion_coeffs(p.width, p.height, p.depth, p.dt, vel_diff)
-        keep = None if p.empty_scene else masks.keep_vel
-        return rbgs_solve3((1, 2, 3), vx, vy, vz, pvx, pvy, pvz, a, c,
-                           acc=p.acc, wall_mode=p.wall_mode, keep=keep)
-    return tuple(diffuse(b, v, pv, masks, p.dt, vel_diff, **kw)
-                 for b, v, pv in ((1, vx, pvx), (2, vy, pvy), (3, vz, pvz)))
+    return project(vx, vy, vz, masks, acc=p.acc, solver=p.solver,
+                   wall_mode=p.wall_mode, empty_scene=p.empty_scene)[:3]
 
 
 def _advect_split(prev, vx, vy, vz, p: SimParams):
@@ -215,33 +223,31 @@ def simulation_step(state: FluidState, masks: SceneMasks,
 def _step(state: FluidState, masks: SceneMasks,
           p: SimParams) -> Tuple[FluidState, StepStats]:
     _require_ported(p, state.vx)
-    kw = dict(acc=p.acc, solver=p.solver, wall_mode=p.wall_mode,
-              use_pallas=p.use_pallas, empty_scene=p.empty_scene)
 
     with span("fst.inlets"):
         state, buffer = _apply_inlets(state, p)
     vx, vy, vz, dens = state
     pvx, pvy, pvz = vx, vy, vz   # pre-diffusion save (simulation.cpp:107-110)
 
-    vel_diff = p.visc if p.use_visc_for_velocity else p.diff
     with span("fst.diffuse"):
-        vx, vy, vz = _diffuse_vel_dispatch(vx, vy, vz, pvx, pvy, pvz, masks,
-                                           p, vel_diff, kw)
+        vx, vy, vz = _diffuse_vel_dispatch(vx, vy, vz, pvx, pvy, pvz,
+                                           masks, p)
     with span("fst.project"):
         vx, vy, vz = _project_dispatch(vx, vy, vz, masks, p)
 
     # the trilinear kernel samples compat and fast advection with a window;
     # the plain path never takes it
-    window = p.advect_window if p.use_pallas else 0
+    sample = (trilinear_gather_window if p.use_pallas and p.advect_window > 0
+              else trilinear_gather)
     with span("fst.advect"):
         if p.mode == "compat":
             # sequential component advection (simulation.cpp:125-127)
             vx2 = advect(1, pvx, vx, vy, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, window)
+                         p.empty_scene, sample)
             vy2 = advect(2, pvy, vx2, vy, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, window)
+                         p.empty_scene, sample)
             vz2 = advect(3, pvz, vx2, vy2, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, window)
+                         p.empty_scene, sample)
             vx, vy, vz = vx2, vy2, vz2
         elif p.mode == "fast":
             # one shared backtrace through the projected field, three
@@ -250,7 +256,7 @@ def _step(state: FluidState, masks: SceneMasks,
                 vx[1:-1, 1:-1, 1:-1], vy[1:-1, 1:-1, 1:-1],
                 vz[1:-1, 1:-1, 1:-1], p.dt, p.width, p.height, p.depth,
                 vx.dtype)
-            smp = torch.stack([gather(prev, xb, yb, zb, window)
+            smp = torch.stack([gather(prev, xb, yb, zb, sample)
                                for prev in (pvx, pvy, pvz)])
             vx, vy, vz = _pad_bounds_tail(smp, (1, 2, 3), masks, p)
         elif p.mode == "split":
@@ -276,7 +282,7 @@ def _step(state: FluidState, masks: SceneMasks,
                                      (0,), masks, p)
         else:
             dens = advect(0, buffer, vx, vy, vz, masks, p.dt, p.wall_mode,
-                          p.empty_scene, window)
+                          p.empty_scene, sample)
 
     with span("fst.stats"):
         on = dict(divergence_on=p.div_stats, density_on=p.step_stats)

@@ -13,14 +13,14 @@ Mirrors ``Simulation::advect`` (simulation.cpp:367-424):
 - solid cells forced to zero, then ``setBounds(b)``.
 
 The eight corners are read with one direct index gather per corner offset.
-With ``window > 0`` the sample is ``kernels.advect_compat``'s wrapper, which
-launches the trilinear kernel on a CUDA tensor and is this module's
-``trilinear_gather`` on the CPU.
+``advect`` and ``gather`` take the sampler as an argument: this module's
+``trilinear_gather`` by default, or a wrapper of the same signature that
+the step chooses (``kernels.advect_compat.trilinear_gather_window``), which
+gives the same values.
 
 Spans (``utils/profiling.span``): ``gather`` runs each sample in
-``fst.gather`` and counts each plain one in
-``kernels.PLAIN["trilinear_gather"]``; ``advect`` runs its ``set_bounds`` in
-``fst.bounds``. A compat step opens four of each.
+``fst.gather``; ``advect`` runs its ``set_bounds`` in ``fst.bounds``. A
+compat step opens four of each.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fluid_simulation_tpu_torch.kernels import PLAIN
 from fluid_simulation_tpu_torch.ops.bounds import set_bounds
 from fluid_simulation_tpu_torch.ops.linsolve import as_scalar
 from fluid_simulation_tpu_torch.scene.masks import SceneMasks
@@ -73,19 +72,12 @@ def trilinear_gather(prev: torch.Tensor, xb, yb, zb,
     return _lerp8(*corners, sx, sy, sz)
 
 
-def gather(prev: torch.Tensor, xb, yb, zb, window: int = 0) -> torch.Tensor:
-    """One trilinear sample of compat or fast advection, in the span
-    ``fst.gather``: through the trilinear kernel's wrapper with
-    ``window > 0`` (``SimParams.advect_window``), else through
-    ``trilinear_gather``, counted in ``kernels.PLAIN``. Both give the same
-    values."""
+def gather(prev: torch.Tensor, xb, yb, zb,
+           sample=trilinear_gather) -> torch.Tensor:
+    """One trilinear sample of compat or fast advection, ``sample(prev,
+    xb, yb, zb)``, in the span ``fst.gather``."""
     with span("fst.gather"):
-        if window > 0:
-            from fluid_simulation_tpu_torch.kernels.advect_compat import (
-                trilinear_gather_window)
-            return trilinear_gather_window(prev, xb, yb, zb)
-        PLAIN["trilinear_gather"] += 1
-        return trilinear_gather(prev, xb, yb, zb)
+        return sample(prev, xb, yb, zb)
 
 
 def backtrace(vx_i, vy_i, vz_i, dt: float, W: int, H: int, D: int, dtype):
@@ -116,13 +108,12 @@ def advect(
     dt: float,
     wall_mode: str = "reference",
     empty_scene: bool = False,
-    window: int = 0,
+    sample=trilinear_gather,
 ) -> torch.Tensor:
     """Advect ``prev`` through the velocity field; returns a new padded
     field. For ``b in (1, 2, 3)`` component ``b`` of the backtrace velocity
     is read from ``prev`` (simulation.cpp:380-382); pass the current
-    vx/vy/vz. ``window > 0`` (``SimParams.advect_window``) samples through
-    the trilinear kernel's wrapper, which gives the same values."""
+    vx/vy/vz. ``sample`` is the trilinear sampler (``gather``)."""
     D2, H2, W2 = prev.shape
     W, H, D = W2 - 2, H2 - 2, D2 - 2
 
@@ -131,7 +122,7 @@ def advect(
     vz_i = (prev if b == 3 else vz)[1:-1, 1:-1, 1:-1]
 
     xb, yb, zb = backtrace(vx_i, vy_i, vz_i, dt, W, H, D, prev.dtype)
-    sampled = gather(prev, xb, yb, zb, window)
+    sampled = gather(prev, xb, yb, zb, sample)
     new_i = sampled if empty_scene else sampled * masks.fluid_i
     out = torch.zeros_like(prev)
     out[1:-1, 1:-1, 1:-1] = new_i

@@ -5,9 +5,7 @@ The reference runs ``acc`` in-place Gauss-Seidel sweeps with ``setBounds``
 after every sweep (simulation.cpp:251-273). Three deterministic orderings:
 
 - ``jacobi``:       f_new = (prev + a*sum6(f_old)) / c, fully parallel;
-- ``rbgs``:         red-black Gauss-Seidel, two parallel half-sweeps; on a
-                    CUDA tensor with ``use_pallas`` it runs the hand-written
-                    kernel (``kernels/linsolve.py``);
+- ``rbgs``:         red-black Gauss-Seidel, two parallel half-sweeps;
 - ``gs_wavefront``: hyperplane (x+y+z = const) ordering, numerically
                     identical to the 1-thread reference sweep (goldens).
 
@@ -126,22 +124,12 @@ def linear_solver(
     acc: int = 15,
     solver: str = "rbgs",
     wall_mode: str = "reference",
-    use_pallas: bool = False,
     empty_scene: bool = False,
 ) -> torch.Tensor:
     """Run ``acc`` relaxation sweeps with boundary conditions after each
-    (simulation.cpp:271). With ``use_pallas`` and ``solver='rbgs'`` this is
-    a kernel wrapper, which launches on a CUDA tensor or raises: the
-    streamed solve on big grids (``kernels.linsolve_stream.streams``), the
-    resident one otherwise."""
+    (simulation.cpp:271)."""
     keep = None if empty_scene else (
         masks.keep_vel if b in (1, 2, 3) else masks.keep_scalar)
-    if use_pallas and solver == "rbgs":
-        from fluid_simulation_tpu_torch.kernels import linsolve_stream
-        from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve
-        fn = (linsolve_stream.rbgs_solve_stream
-              if linsolve_stream.streams(f.shape) else rbgs_solve)
-        return fn(b, f, prev, a, c, acc=acc, wall_mode=wall_mode, keep=keep)
     return relax(b, f, prev, a, c, keep, acc=acc, solver=solver,
                  wall_mode=wall_mode)
 
@@ -166,7 +154,6 @@ def diffuse(
     acc: int = 15,
     solver: str = "rbgs",
     wall_mode: str = "reference",
-    use_pallas: bool = False,
     empty_scene: bool = False,
 ) -> torch.Tensor:
     """Diffusion (simulation.cpp:278-284); the caller chooses the
@@ -174,5 +161,4 @@ def diffuse(
     D2, H2, W2 = f.shape
     a, c = diffusion_coeffs(W2 - 2, H2 - 2, D2 - 2, dt, diff)
     return linear_solver(b, f, prev, a, c, masks, acc=acc, solver=solver,
-                         wall_mode=wall_mode, use_pallas=use_pallas,
-                         empty_scene=empty_scene)
+                         wall_mode=wall_mode, empty_scene=empty_scene)

@@ -68,7 +68,6 @@ def project(
     acc: int = 15,
     solver: str = "rbgs",
     wall_mode: str = "reference",
-    use_pallas: bool = False,
     empty_scene: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Make the velocity field (approximately) divergence-free. Returns
@@ -81,8 +80,7 @@ def project(
     div = set_bounds(0, div, masks, wall_mode, empty_scene)
     p = set_bounds(0, torch.zeros_like(vx), masks, wall_mode, empty_scene)
     p = linear_solver(0, p, div, 1.0, 6.0, masks, acc=acc, solver=solver,
-                      wall_mode=wall_mode, use_pallas=use_pallas,
-                      empty_scene=empty_scene)
+                      wall_mode=wall_mode, empty_scene=empty_scene)
 
     grad_x = _one_axis_gradient(
         p, masks.nb_xp, masks.nb_xm,

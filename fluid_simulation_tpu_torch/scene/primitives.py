@@ -43,3 +43,22 @@ def add_sphere(obs: np.ndarray, cx: float, cy: float, cz: float,
     out = obs.copy()
     out[1:-1, 1:-1, 1:-1] = np.where(inside, 1.0, out[1:-1, 1:-1, 1:-1])
     return out
+
+
+def flagship_sphere() -> np.ndarray:
+    """The JAX bench's ``obstacle_sphere`` scene (bench.py:224-226): a
+    sphere of radius 10 at (40, 32, 32) in the 128x64x64 tunnel."""
+    return add_sphere(empty_obstacles(128, 64, 64), cx=40, cy=32, cz=32,
+                      radius=10)
+
+
+# the JAX bench's big grids (W, H, D) and their spheres (bench.py:227-263)
+BIG_SPHERES = {(256, 128, 128): dict(cx=85, cy=64, cz=64, radius=20),
+               (256, 256, 256): dict(cx=48, cy=128, cz=128, radius=40),
+               (512, 256, 256): dict(cx=48, cy=128, cz=128, radius=40)}
+
+
+def big_sphere(width: int, height: int, depth: int) -> np.ndarray:
+    """The JAX bench's sphere scene of one of its big grids."""
+    return add_sphere(empty_obstacles(width, height, depth),
+                      **BIG_SPHERES[(width, height, depth)])

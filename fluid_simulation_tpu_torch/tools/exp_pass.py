@@ -11,7 +11,7 @@ carry, on an empty scene and with a keep mask. Each row is a chain
 0.25``, b = 1, reference walls, a = 1e-4 and c = 1.0006 (``exp_hbm2``'s
 production call); sweep 1 reads a padded field of 0.1 whatever ``c`` is.
 The keep mask is the interior of ``keep_vel`` of the bench's sphere at the
-bench's big grids (``utils.profiling.big_sphere``), elsewhere of a sphere
+bench's big grids (``scene.primitives.big_sphere``), elsewhere of a sphere
 of radius min(W, H, D)/4 at the centre.
 
 A row prints its µs per call (``tools/_timing.replay_slope``: the chains
@@ -34,11 +34,10 @@ import torch
 from fluid_simulation_tpu_torch.kernels import linsolve_stream as ls
 from fluid_simulation_tpu_torch.scene.masks import build_masks
 from fluid_simulation_tpu_torch.scene.primitives import (
-    add_sphere, empty_obstacles)
+    BIG_SPHERES, add_sphere, big_sphere, empty_obstacles)
 from fluid_simulation_tpu_torch.tools import exp_hbm, exp_hbm2
 from fluid_simulation_tpu_torch.tools._timing import (
     HBM_BYTES_PER_S, clock_line)
-from fluid_simulation_tpu_torch.utils.profiling import BIG_SPHERES, big_sphere
 
 B, A, C = exp_hbm2.PASS_B, exp_hbm2.PASS_A, exp_hbm2.PASS_C
 

@@ -1,1 +1,1 @@
-"""Measurement helpers of the port (``profiling``)."""
+"""The program's spans (``profiling``)."""

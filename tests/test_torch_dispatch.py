@@ -7,11 +7,10 @@ is swapped for a stub that checks what the real launcher would be given
 (shape, dtype, contiguity, no aliasing of inputs) and writes the plain
 result. The production steps then run through the real wrappers: the
 empty split and compat steps, obstacle scenes and no-slip walls with
-vorticity, compat and fast advection with a window, the fused three-field
-diffusion with its gate forced on, the step's statistics (one launch a
-step, no plain reduction, no host-to-device tensor), and the launch
-counters must show which kernels ran, per step. Unported configurations
-must raise on the CUDA branch.
+vorticity, compat and fast advection with and without a window, the
+step's statistics (one launch a step, no plain reduction, no
+host-to-device tensor), and the launch counters must show which kernels
+ran, per step. Unported configurations must raise on the CUDA branch.
 """
 
 import ctypes
@@ -23,7 +22,7 @@ import torch.nn.functional as F
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
-    LAUNCHES, PLAIN, _build, advect_compat as k9, advect_split as k3,
+    LAUNCHES, _build, advect_compat as k9, advect_split as k3,
     bounds as k4, dma as k23d, hbm as k23h, lerpcost as k24, linsolve as k1,
     linsolve_blocked as k22c,
     linsolve_cpack as k22b, linsolve_mxu as k23m, linsolve_stream as k11,
@@ -565,18 +564,13 @@ def test_window_step_launch_counts(card, mode, scene, nonzero):
 @pytest.mark.parametrize("mode", ["compat", "fast"])
 @pytest.mark.parametrize("window", [0, 1])
 def test_plain_gathers_are_counted(card, mode, window):
-    """Each of a step's four trilinear samples is a plain gather at window
-    0, counted in ``PLAIN`` and launching nothing, and a launch of the
-    trilinear kernel with a window, where no plain gather is counted."""
+    """Each of a step's four trilinear samples is a launch of the trilinear
+    kernel with a window, and a plain gather, which launches nothing, at
+    window 0; both equal the plain step (``_run_two_steps``)."""
     p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode,
                   advect_window=window)
-    wt = WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4,
-                                            4, 2), device=CPU)
-    wt.state = FluidState(*_random_state(p))
-    wt.simulate(2)
-    plain = 0 if window else 4
-    assert PLAIN == {"trilinear_gather": 2 * plain}
-    assert LAUNCHES["trilinear_gather"] == 2 * (4 - plain)
+    _run_two_steps(p, add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2))
+    assert LAUNCHES["trilinear_gather"] == (8 if window else 0)
 
 
 @pytest.mark.parametrize("mode", ["compat", "fast"])
@@ -586,41 +580,6 @@ def test_plain_window_run_launches_nothing(card, mode):
                   use_pallas=False, advect_window=2)
     WindTunnel(p, device=CPU).simulate(1)
     assert set(LAUNCHES.values()) == {0}
-
-
-@pytest.mark.parametrize("scene,change", [
-    (None, {}), (SPHERE, {}), (None, dict(wall_mode="noslip"))])
-def test_forced_solve3_step(card, monkeypatch, scene, change):
-    """With the gate forced on, the three velocity diffusions are one
-    rbgs_solve3 call and no rbgs_solve; the step's state equals the gate-off
-    step's, bitwise."""
-    p = SimParams(width=W, height=H, depth=D, acc=4, mode="split", **change)
-    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
-    states = []
-    for forced in (True, False):
-        monkeypatch.setattr(wtm, "_diffuse3_applicable", lambda p: forced)
-        reset_launches()
-        wt = WindTunnel(p, obstacles=obs, device=CPU)
-        wt.state = FluidState(*_random_state(p))
-        wt.simulate(2)
-        states.append(wt.state)
-        if forced:
-            solves = dict(rbgs_solve3=1, project_masked=2,
-                          pad_bounds_masked=2) if scene else dict(
-                rbgs_solve3=1, project_empty=2, pad_bounds=2)
-            assert {k: n / 2 for k, n in LAUNCHES.items()} == _step_counts(
-                advect_split=2, **solves)
-    for a, b in zip(*states):
-        assert torch.equal(a, b)
-
-
-def test_forced_solve3_keeps_the_streamed_route(card, monkeypatch):
-    """Big grids stream their solves: the fused solve is resident only."""
-    monkeypatch.setattr(wtm, "_diffuse3_applicable", lambda p: True)
-    monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
-    p = SimParams(width=W, height=H, depth=D, acc=5, mode="split")
-    assert _run_two_steps(p, zero_edges=True) == _step_counts(
-        rbgs_solve_stream=3, project_stream=2, advect_split=2, pad_bounds=4)
 
 
 def _refuse_plain_stats(monkeypatch):

@@ -1,6 +1,7 @@
-"""The port's profiling helpers on the CPU: the busy-time arithmetic, the
-step's phases from a profile's rows, the trace exporter, and the refusal
-to report a device metric without a card."""
+"""The operator tool (``tools/breakdown.py``) and the spans' trace
+exporter on the CPU: the busy-time arithmetic, the step's phases from a
+profile's rows, the cells and the bench's scene presets, the trace
+exporter, and the refusal to report a device metric without a card."""
 
 import json
 
@@ -9,9 +10,12 @@ import torch
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.parallel import ShardedWindTunnel
-from fluid_simulation_tpu_torch.utils.profiling import (
-    BIG_SPHERES, big_sphere, busy_us, cells, host_ms, main, make_tunnel,
-    phase_table, shard_cells, step_breakdown, trace_ctx)
+from fluid_simulation_tpu_torch.scene.primitives import (
+    BIG_SPHERES, big_sphere)
+from fluid_simulation_tpu_torch.tools.breakdown import (
+    busy_us, cells, host_ms, main, make_tunnel, phase_table, shard_cells,
+    step_breakdown)
+from fluid_simulation_tpu_torch.utils.profiling import trace_ctx
 
 torch.set_num_threads(1)
 

@@ -29,7 +29,7 @@ from fluid_simulation_tpu_torch.scene import (
     load_stl_into_obstacles, read_stl, rotate_triangles, rotation_matrix,
     voxelize_rasterize, voxelize_ray_parity)
 from fluid_simulation_tpu_torch.scene.masks import build_masks
-from fluid_simulation_tpu_torch.utils.profiling import big_sphere
+from fluid_simulation_tpu_torch.scene.primitives import big_sphere
 
 torch.set_num_threads(1)
 
