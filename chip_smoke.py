@@ -14,7 +14,11 @@ final ``ok`` line):
    bench sphere's masks at 128x64x64 and a random 0/1 obstacle field at
    13x7x5. Each kernel's time, its plain version's, and its bound (the
    bytes it must move at 3.35 TB/s or its f32 operations at 67 TFLOP/s,
-   whichever is larger) at the flagship shapes;
+   whichever is larger) at the flagship shapes. The padding kernel (K4,
+   K4 masked) is held to its plain version bit for bit (a zero's sign
+   too), also at ``RAGGED_PAD``: D, H or W 1, and W under and just over
+   a warp's chunk of x positions, for 1, 2 and 3 fields, both walls,
+   masked (interior views of padded masks) and not;
 3. the streamed big-grid kernels (rbgs_sweep1, rbgs_pass at nsw 1 and 2
    with and without keep, div_packed, grad_packed) against their plain
    versions, bitwise, at 256x128x128 with the bench sphere's masks and at
@@ -52,8 +56,8 @@ final ``ok`` line):
    density sums exactly (repr), to hold against another tree's; ms/step;
 9. per call at each big shape, both routes of the solve and of the
    projection (resident and streamed, in turns), and K4 / K4 masked
-   against their plain versions at 512x256x256 (the shapes of the
-   never-routed streamed padding it stands for);
+   against their plain versions at 512x256x256 (K7, the streamed route's
+   padding), each with its time beside its bound and its share of it;
 10. the variant kernels against their plain versions, bitwise: the
     trilinear gather (K9) at 128x64x64 on random backtraces reaching 10+
     cells and on a sphere state after 20 compat steps, beside
@@ -184,6 +188,10 @@ SUM_BAND, MAX_BAND = 0.015, 0.02                 # bench.py:194-195
 # one H100 SXM: HBM rate and f32 rate outside the tensor cores (NVIDIA's
 # data sheet, at the 700 W limit)
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+# (D, H, W) of the padding kernel's ragged rows: one-cell axes, and x
+# extents under and just over a warp's chunk of x positions (a lane
+# carries 4, 8 or 16 by W; 600 takes two chunks of 512)
+RAGGED_PAD = ((1, 1, 1), (3, 5, 7), (5, 3, 130), (2, 3, 600))
 # the reference main()'s scene (SURVEY.md:123-128) with the repo's mesh at
 # scale 0.5, where it fits the 128x64x64 tunnel's cross-section
 STL_SCENE = dict(stl_path="tests/golden/icosphere_r10.stl", scale=0.5,
@@ -390,6 +398,38 @@ class Smoke:
     def compare(self, name, got, want, label, ref="plain"):
         self.record(name, self.diff(got, want), label, ref)
 
+    def compare_bits(self, name, got, want, label):
+        """``compare`` to the bits: a zero of the other sign fails too
+        (then the error reads inf)."""
+        torch = self.torch
+        err = self.diff(got, want)
+        if err == 0.0 and not all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(got, want)):
+            err = float("inf")
+        self.record(name, err, label)
+
+    def pad_ragged(self, rng):
+        """K4 and K4 masked against their plain version at ``RAGGED_PAD``,
+        1, 2 and 3 fields, both walls, bitwise; the masks are interior
+        views of random padded 0/1 masks."""
+        from fluid_simulation_tpu_torch.kernels.bounds import (
+            pad_bounds, pad_bounds_plain)
+        inner = (slice(1, -1),) * 3
+        for D, H, W in RAGGED_PAD:
+            pads = [(self.rand(rng, (D + 2, H + 2, W + 2), 0.0, 1.0) < 0.7)
+                    .float() for _ in range(2)]
+            for bs in ((0,), (2, 3), (1, 2, 3)):
+                smp = self.rand(rng, (len(bs), D, H, W))
+                for wall in ("reference", "noslip"):
+                    for name, masks in (
+                            ("pad_bounds", ()),
+                            ("pad_bounds_masked", [m[inner] for m in pads])):
+                        self.compare_bits(
+                            name, pad_bounds(smp, bs, wall, *masks),
+                            pad_bounds_plain(smp, bs, wall, *masks),
+                            f"{W}x{H}x{D} {wall} bs={bs}")
+
     def record(self, name, err, label, ref="plain"):
         """Keep ``err``, a max |kernel - ref|, as the kernel's and fail
         unless it is 0."""
@@ -513,9 +553,10 @@ class Smoke:
             smp1 = self.rand(rng, (1, D, H, W))
             k4 = lambda: pad_bounds(smp3, (1, 2, 3), wall)          # noqa: E731
             p4 = lambda: pad_bounds_plain(smp3, (1, 2, 3), wall)    # noqa: E731
-            self.compare("pad_bounds", k4(), p4(), f"{tag} bs=(1,2,3)")
-            self.compare("pad_bounds", pad_bounds(smp1, (0,), wall),
-                         pad_bounds_plain(smp1, (0,), wall), f"{tag} bs=(0,)")
+            self.compare_bits("pad_bounds", k4(), p4(), f"{tag} bs=(1,2,3)")
+            self.compare_bits("pad_bounds", pad_bounds(smp1, (0,), wall),
+                              pad_bounds_plain(smp1, (0,), wall),
+                              f"{tag} bs=(0,)")
 
             if flagship:
                 for name, kf, pf, reps in (("rbgs_solve", k1, p1, 20),
@@ -535,6 +576,7 @@ class Smoke:
                 self.bound("advect_split", (stack, vx, vy, vz, out3),
                            lerp_ops)
                 self.bound("pad_bounds", (smp3, *k4()), 0)
+        self.pad_ragged(rng)
 
     def split_flagship(self):
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
@@ -634,13 +676,13 @@ class Smoke:
                                     m.fluid_i, kv)
             p4 = lambda: pad_bounds_plain(smp3, (1, 2, 3), wall,  # noqa: E731
                                           m.fluid_i, kv)
-            self.compare("pad_bounds_masked", k4(), p4(),
-                         f"{tag} bs=(1,2,3)")
+            self.compare_bits("pad_bounds_masked", k4(), p4(),
+                              f"{tag} bs=(1,2,3)")
             ks = m.keep_scalar[1:-1, 1:-1, 1:-1]
-            self.compare("pad_bounds_masked",
-                         pad_bounds(smp1, (0,), wall, m.fluid_i, ks),
-                         pad_bounds_plain(smp1, (0,), wall, m.fluid_i, ks),
-                         f"{tag} bs=(0,)")
+            self.compare_bits("pad_bounds_masked",
+                              pad_bounds(smp1, (0,), wall, m.fluid_i, ks),
+                              pad_bounds_plain(smp1, (0,), wall, m.fluid_i,
+                                               ks), f"{tag} bs=(0,)")
 
             wv = [self.rand(rng, pad, -3.0, 3.0) for _ in range(3)]
             k10 = lambda: confinement(*wv, kv, 5.0, 0.05)  # noqa: E731
@@ -1009,14 +1051,15 @@ class Smoke:
             del f, g, vel
         # K4 and K4 masked at the 512x256x256 shapes (m from the last grid)
         smp3 = self.rand(rng, (3, D, H, W))
-        self.compare("pad_bounds", pad_bounds(smp3, (1, 2, 3)),
-                     pad_bounds_plain(smp3, (1, 2, 3)),
-                     f"{W}x{H}x{D} bs=(1,2,3)")
-        self.compare("pad_bounds_masked",
-                     pad_bounds(smp3, (1, 2, 3), "reference", m.fluid_i, kv),
-                     pad_bounds_plain(smp3, (1, 2, 3), "reference",
-                                      m.fluid_i, kv),
-                     f"{W}x{H}x{D} bs=(1,2,3)")
+        self.compare_bits("pad_bounds", pad_bounds(smp3, (1, 2, 3)),
+                          pad_bounds_plain(smp3, (1, 2, 3)),
+                          f"{W}x{H}x{D} bs=(1,2,3)")
+        self.compare_bits("pad_bounds_masked",
+                          pad_bounds(smp3, (1, 2, 3), "reference", m.fluid_i,
+                                     kv),
+                          pad_bounds_plain(smp3, (1, 2, 3), "reference",
+                                           m.fluid_i, kv),
+                          f"{W}x{H}x{D} bs=(1,2,3)")
         for name, masks in (("pad_bounds", ()),
                             ("pad_bounds_masked", (m.fluid_i, kv))):
             kf = lambda: pad_bounds(smp3, (1, 2, 3), "reference",  # noqa
@@ -1024,10 +1067,13 @@ class Smoke:
             pf = lambda: pad_bounds_plain(smp3, (1, 2, 3),  # noqa: E731
                                           "reference", *masks)
             ms, pms = self.event_ms(kf, 10), self.event_ms(pf, 5)
+            # the interiors and masks read once, the padded fields written
+            nbytes = sum(t.numel() * 4 for t in (smp3, *masks, *kf()))
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             print(f"   {name:14s} {W}x{H}x{D} shapes: kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms per call (3 fields)", flush=True)
-            self.bound(name, (smp3, *masks, *kf()),
-                       3 * len(masks) * W * H * D, False)
+                  f"plain {pms:.4f} ms per call (3 fields); bound "
+                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB), "
+                  f"{100 * bound_ms / ms:.1f} % of it", flush=True)
         torch.cuda.empty_cache()
 
     def same_state(self, a, b, label):

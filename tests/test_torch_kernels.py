@@ -127,19 +127,43 @@ def test_k3_plain_equals_numpy_oracle(dims, seed):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("bs,wall_mode,masked", [
-    ((1, 2, 3), "reference", False),
-    ((1, 2, 3), "noslip", False),
-    ((0,), "reference", False),
-    ((1, 2, 3), "reference", True),
-    ((0,), "reference", True),
-])
-def test_k4_pad_bounds_matches_pallas(bs, wall_mode, masked):
+# ragged (D, H, W): one-cell grids, and x extents that fill no whole chunk
+# of the card kernel's lanes (W + 2 = 3, 9, 132 and 602)
+RAGGED_PAD = ((1, 1, 1), (3, 5, 7), (5, 3, 130), (2, 3, 600))
+
+
+def _k4_cases():
+    cases = [pytest.param(bs, wall, masked, (D, H, W), id=f"bs{i}-{wall}-"
+                          f"{masked}")
+             for i, (bs, wall, masked) in enumerate([
+                 ((1, 2, 3), "reference", False),
+                 ((1, 2, 3), "noslip", False),
+                 ((0,), "reference", False),
+                 ((1, 2, 3), "reference", True),
+                 ((0,), "reference", True)])]
+    for dims in RAGGED_PAD:
+        for bs, wall, masked in (((1, 2, 3), "noslip", False),
+                                 ((2, 3), "reference", False),
+                                 ((1, 2, 3), "reference", True),
+                                 ((0,), "noslip", True)):
+            cases.append(pytest.param(
+                bs, wall, masked, dims, id="ragged{}x{}x{}-b{}-{}-{}".format(
+                    *dims, len(bs), wall, "masked" if masked else "plain")))
+    return cases
+
+
+@pytest.mark.parametrize("bs,wall_mode,masked,dhw", _k4_cases())
+def test_k4_pad_bounds_matches_pallas(bs, wall_mode, masked, dhw):
+    Dd, Hd, Wd = dhw
     rng = np.random.default_rng(11)
-    smp = rng.normal(size=(len(bs), D, H, W)).astype(np.float32)
+    smp = rng.normal(size=(len(bs), Dd, Hd, Wd)).astype(np.float32)
     jkw, tkw = {}, {}
     if masked:
-        obs = add_sphere(empty_obstacles(W, H, D), W // 3, H // 2, D // 2, 2.5)
+        if dhw == (D, H, W):
+            obs = add_sphere(empty_obstacles(W, H, D), W // 3, H // 2, D // 2,
+                             2.5)
+        else:
+            obs = _obstacle_scene("random", (Wd, Hd, Dd))
         jm, tm = jax_build_masks(jnp.asarray(obs)), build_masks(obs, device=CPU)
         jkeep = jm.keep_vel if bs[0] else jm.keep_scalar
         tkeep = tm.keep_vel if bs[0] else tm.keep_scalar
