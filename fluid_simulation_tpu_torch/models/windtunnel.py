@@ -213,8 +213,9 @@ def simulation_step(state: FluidState, masks: SceneMasks,
     runs in a span (``utils/profiling.span``): ``fst.step`` around
     ``fst.inlets``, ``fst.diffuse``, ``fst.project`` (twice),
     ``fst.advect``, ``fst.confine``, ``fst.advect_density`` and
-    ``fst.stats``. Inside the advection phases each trilinear sample of
-    compat and fast runs in ``fst.gather`` (4 a step), and each padding or
+    ``fst.stats``. Inside the advection phases each backtrace of compat
+    and fast runs in ``fst.backtrace`` (compat 4, fast 2 a step), each
+    trilinear sample in ``fst.gather`` (4 a step), and each padding or
     ``set_bounds`` in ``fst.bounds`` (split 2, fast 2, compat 4 a step)."""
     with span("fst.step"):
         return _step(state, masks, params)

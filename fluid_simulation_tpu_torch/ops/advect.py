@@ -18,9 +18,11 @@ The eight corners are read with one direct index gather per corner offset.
 the step chooses (``kernels.advect_compat.trilinear_gather_window``), which
 gives the same values.
 
-Spans (``utils/profiling.span``): ``gather`` runs each sample in
-``fst.gather``; ``advect`` runs its ``set_bounds`` in ``fst.bounds``. A
-compat step opens four of each.
+Spans (``utils/profiling.span``): ``backtrace`` runs in
+``fst.backtrace``, ``gather`` runs each sample in ``fst.gather``;
+``advect`` runs its ``set_bounds`` in ``fst.bounds``. A compat step opens
+four of each; a fast step two backtraces (the shared one of the velocity
+and density's) and four gathers.
 """
 
 from __future__ import annotations
@@ -82,20 +84,21 @@ def gather(prev: torch.Tensor, xb, yb, zb,
 
 def backtrace(vx_i, vy_i, vz_i, dt: float, W: int, H: int, D: int, dtype):
     """Backtraced coordinates of every interior cell, clamped like the
-    reference (simulation.cpp:384-390)."""
-    dev = vx_i.device
-    xi = torch.arange(1, W + 1, dtype=dtype, device=dev).reshape(1, 1, W)
-    yi = torch.arange(1, H + 1, dtype=dtype, device=dev).reshape(1, H, 1)
-    zi = torch.arange(1, D + 1, dtype=dtype, device=dev).reshape(D, 1, 1)
-    dt = np.float32(dt)
-    xb = xi - as_scalar(dt * np.float32(W), dtype) * vx_i
-    yb = yi - as_scalar(dt * np.float32(H), dtype) * vy_i
-    zb = zi - as_scalar(dt * np.float32(D), dtype) * vz_i
-    lo = as_scalar(0.5, dtype)
-    xb = xb.clamp(lo, as_scalar(np.float32(W) + np.float32(0.5), dtype))
-    yb = yb.clamp(lo, as_scalar(np.float32(H) + np.float32(0.5), dtype))
-    zb = zb.clamp(lo, as_scalar(np.float32(D) + np.float32(0.5), dtype))
-    return xb, yb, zb
+    reference (simulation.cpp:384-390), in the span ``fst.backtrace``."""
+    with span("fst.backtrace"):
+        dev = vx_i.device
+        xi = torch.arange(1, W + 1, dtype=dtype, device=dev).reshape(1, 1, W)
+        yi = torch.arange(1, H + 1, dtype=dtype, device=dev).reshape(1, H, 1)
+        zi = torch.arange(1, D + 1, dtype=dtype, device=dev).reshape(D, 1, 1)
+        dt = np.float32(dt)
+        xb = xi - as_scalar(dt * np.float32(W), dtype) * vx_i
+        yb = yi - as_scalar(dt * np.float32(H), dtype) * vy_i
+        zb = zi - as_scalar(dt * np.float32(D), dtype) * vz_i
+        lo = as_scalar(0.5, dtype)
+        xb = xb.clamp(lo, as_scalar(np.float32(W) + np.float32(0.5), dtype))
+        yb = yb.clamp(lo, as_scalar(np.float32(H) + np.float32(0.5), dtype))
+        zb = zb.clamp(lo, as_scalar(np.float32(D) + np.float32(0.5), dtype))
+        return xb, yb, zb
 
 
 def advect(

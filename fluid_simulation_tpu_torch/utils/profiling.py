@@ -6,8 +6,10 @@ The step opens (``models/windtunnel.simulation_step``) ``fst.step`` around
 each step, and inside it ``fst.inlets``, ``fst.diffuse``, ``fst.project``
 (twice), ``fst.advect``, ``fst.confine`` (with vorticity),
 ``fst.advect_density``, ``fst.stats``, ``fst.bounds`` in whichever of them
-pads or sets the bounds, and ``fst.gather`` around each trilinear sample of
-compat and fast (``ops/advect.gather``); ``WindTunnel.__init__`` opens
+pads or sets the bounds, ``fst.backtrace`` around each backtrace of compat
+and fast (``ops/advect.backtrace``; compat 4 a step, fast 2) and
+``fst.gather`` around each trilinear sample of compat and fast
+(``ops/advect.gather``); ``WindTunnel.__init__`` opens
 ``fst.setup`` around ``fst.setup.masks`` and ``fst.setup.state``. The
 operator tool that reads them is ``tools/breakdown.py``.
 """

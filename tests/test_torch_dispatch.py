@@ -513,6 +513,31 @@ def test_streamed_step_launch_counts(card, monkeypatch, streamed, scene,
         **want, **vort)
 
 
+@pytest.mark.parametrize("scene", [None, SPHERE])
+def test_streamed_compat_step_samples_plain(card, monkeypatch, scene):
+    """The default mode on a streamed-route grid (the route constant
+    lowered to 16x8x8): compat streams its 3 solves and 2 projections,
+    pads only the projections' two stacks, and samples its four advects
+    through the plain gather at window 0, never the trilinear kernel.
+    Equal to the plain step (``_run_two_steps``)."""
+    monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
+    samplers = []
+    advect = wtm.advect
+
+    def recording(*args):
+        samplers.append(args[-1])
+        return advect(*args)
+    monkeypatch.setattr(wtm, "advect", recording)
+    p = SimParams(width=W, height=H, depth=D, acc=5)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    want = (dict(rbgs_solve_stream_keep=3, project_stream_masked=2,
+                 pad_bounds_masked=2) if scene else
+            dict(rbgs_solve_stream=3, project_stream=2, pad_bounds=2))
+    assert _run_two_steps(p, obs, zero_edges=True) == _step_counts(**want)
+    # two steps of the kernel branch, then two of the plain reference
+    assert samplers == [trilinear_gather] * 16
+
+
 def test_plain_reference_run_launches_nothing(card):
     p = SimParams(width=W, height=H, depth=D, acc=3, mode="split",
                   use_pallas=False, wall_mode="noslip", vorticity=5.0)

@@ -85,6 +85,24 @@ def test_each_trilinear_sample_in_its_span(label):
                 and e.cpu_parent.name == "fst.gather"]
 
 
+@pytest.mark.parametrize("mode", ["compat", "fast", "split"])
+def test_each_backtrace_in_its_span(mode):
+    """compat backtraces each of its four advects in ``fst.backtrace``,
+    the velocity's three inside ``fst.advect`` and the density's inside
+    ``fst.advect_density``; fast backtraces twice, the velocity's shared
+    one and the density's; split opens none."""
+    wt = WindTunnel(SMALL.replace(mode=mode), obstacles=_sphere(), device=CPU)
+    wt.step()
+    _, events = _profiled(wt.step)
+    parents = sorted(e.cpu_parent.name for e in events
+                     if e.name == "fst.backtrace")
+    assert parents == {"compat": ["fst.advect"] * 3 + ["fst.advect_density"],
+                       "fast": ["fst.advect", "fst.advect_density"],
+                       "split": []}[mode]
+    assert not [e for e in events if e.cpu_parent is not None
+                and e.cpu_parent.name == "fst.backtrace"]
+
+
 def test_spans_are_not_user_annotations():
     wt = WindTunnel(SMALL.replace(mode="split"), device=CPU)
 
