@@ -37,7 +37,8 @@ final ``ok`` line):
    plain path (``use_pallas=False``) from the same state, which must agree;
 5. compat parity: 100 default compat steps at 128x64x64 against the
    reference's own print (density sum 14125.1 within 1.5 %, max 0.0505
-   within 2 %), launch counts 3/2/0/0 per step;
+   within 2 %), launch counts 3/2 solves/projections and 4 whole advects
+   (K19) per step;
 6. the bench's sphere (bench.py:224-226) in split for 100 steps and in
    compat for 20, and the reference main()'s STL scene (the repo's
    icosphere, rotated and translated as main() does, at scale 0.5) in split
@@ -67,13 +68,20 @@ final ``ok`` line):
     three-field solve (K5) empty, with keep and with no-slip walls, also
     against three K1 calls; K1 unpacked with a random keep that is 0 on
     parts of the ghost shell; the fused-backtrace split advection (K8) on
-    a stack of 3. Their times and bounds;
+    a stack of 3. Their times and bounds; then K19, a whole compat advect
+    in one launch (``advect_compat``), against the plain call bitwise at
+    ragged shapes (b 0-3, both walls, empty and with solids, backtraces
+    clamped at every face and on exact integers) and at 512x256x256 and
+    128x64x64 with their spheres: its event time beside the plain call's,
+    its bound, its device time by CUDA-graph replay;
 11. compat with ``advect_window=1`` for 100 steps: the parity gate, 3/2/4
-    solves/projections/gathers per step, the final state bitwise equal to
-    the window-0 run's, ms/step of both; its sphere twin for 20 steps
-    (solids exactly 0, equal to the window-0 twin);
-12. fast with ``advect_window=1`` against fast without, 100 steps: bitwise
-    equal states, the residual bounds, ms/step of both;
+    solves/projections/whole advects (K19, whatever the window) per step,
+    the final state bitwise equal to the window-0 run's, ms/step of both;
+    its sphere twin for 20 steps (solids exactly 0, equal to the window-0
+    twin);
+12. fast with ``advect_window=1`` against fast without, 100 steps: 3
+    trilinear gathers (K9) and one whole density advect (K19) per step,
+    bitwise equal states, the residual bounds, ms/step of both;
 13. the sharded solve's sweep kernels (B15 packed, B20 padded) against
     their plain versions, bitwise, on the 256^3 slab of two ranks
     (128x256x256), the 128x64x64 slab of two (32x64x128) and a ragged
@@ -228,7 +236,7 @@ KERNELS = {
     "project_stream_masked": (
         "fluid_simulation_tpu_torch/csrc/project_stream.cu",
         "fluid_simulation_tpu/kernels/project_stream.py:504"),
-    # compat/fast advection with advect_window > 0 (B19)
+    # fast advection's velocity samples with advect_window > 0 (B19)
     "trilinear_gather": ("fluid_simulation_tpu_torch/csrc/trilinear.cu",
                          "fluid_simulation_tpu/kernels/advect_compat.py:150"),
     # the variants (B16, B21, B18): gated off, never routed, opt-in in the
@@ -292,6 +300,12 @@ KERNELS = {
     "step_stats": ("fluid_simulation_tpu_torch/csrc/stats.cu",
                    "none (XLA glue, fluid_simulation_tpu/models/"
                    "windtunnel.py:403-413)"),
+    # a whole compat advect: the XLA backtrace, K9's corner fetch (or the
+    # XLA gather) and XLA's setBounds fused (row: 512x256x256, the bench
+    # sphere, a velocity call)
+    "advect_compat": ("fluid_simulation_tpu_torch/csrc/advect_compat.cu",
+                      "fluid_simulation_tpu/ops/advect.py:105 with "
+                      "fluid_simulation_tpu/kernels/advect_compat.py:150"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -318,7 +332,10 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "lerpcost_pass": 4 + 3 * 3,
                 # the masked divergence (6 products, 5 sums, 2 products),
                 # |.|, the max and the density add
-                "step_stats": 16}
+                "step_stats": 16,
+                # 3 backtraces (product, difference, clamp of 2), 3 floors,
+                # 3 fractions, 7 lerps of 3, the two mask products
+                "advect_compat": 3 * 4 + 3 + 3 + 21 + 2}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -608,8 +625,8 @@ class Smoke:
         from fluid_simulation_tpu_torch import SimParams, WindTunnel
         wt = WindTunnel(SimParams(div_stats=False, step_stats=False),
                         device="cuda")
-        self.run_path(wt, 100, "compat 3/2/0/0 per step", rbgs_solve=3,
-                      project_empty=2)
+        self.run_path(wt, 100, "compat 3/2/4 per step", rbgs_solve=3,
+                      project_empty=2, advect_compat=4)
         self.check_parity(wt)
 
     def check_parity(self, wt):
@@ -748,7 +765,7 @@ class Smoke:
         wt = WindTunnel(SimParams(div_stats=False, step_stats=False),
                         obstacles=flagship_sphere(), device="cuda")
         self.run_path(wt, 20, "sphere compat", rbgs_solve_keep=3,
-                      project_masked=2)
+                      project_masked=2, advect_compat=4)
         self.check_scene(wt, "sphere compat 128x64x64")
         self.kernel_vs_plain_steps(wt, 2)
 
@@ -1242,6 +1259,82 @@ class Smoke:
                    (6 + 3 * 3) * (D2 * H2 * W + D2 * H * W + n))
         self.kern["advect_split_fused"]["launches"] = 0    # no route
 
+    def advect_compat(self):
+        """K19 against the plain call (``ops.advect.advect``) bitwise: b
+        0-3, both walls, empty and with solids, at ragged shapes and on
+        backtraces that clamp at every face; then at 512x256x256 (the
+        bench sphere) and 128x64x64 (the flagship sphere) a velocity and a
+        density call, bitwise, with its event time beside the plain call's
+        and its bound, and its device time (CUDA-graph replay)."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels.advect_compat import (
+            advect_compat)
+        from fluid_simulation_tpu_torch.ops.advect import advect
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.scene.primitives import (
+            big_sphere, empty_obstacles, flagship_sphere)
+        from fluid_simulation_tpu_torch.tools.exp_transpose import (
+            measure_body)
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 19)
+        for D, H, W in ((1, 1, 1), (9, 11, 37), (3, 2, 600)):
+            pad = (D + 2, H + 2, W + 2)
+            obs = empty_obstacles(W, H, D)
+            obs[1:-1, 1:-1, 1:-1] = rng.uniform(size=(D, H, W)) < 0.2
+            solids = build_masks(obs, device="cuda")
+            vel = [self.rand(rng, pad, -12.0, 12.0) for _ in range(3)]
+            vel[0][0, 0, :] = 0.0   # backtraces on exact integers
+            dens = self.rand(rng, pad, 0.0, 1.0)
+            for b in range(4):
+                prev = dens if b == 0 else vel[b - 1] * 0.5
+                for wall in ("reference", "noslip"):
+                    for empty in (True, False):
+                        args = (b, prev, *vel, solids, 0.1, wall, empty)
+                        self.compare_bits(
+                            "advect_compat", advect_compat(*args),
+                            advect(*args),
+                            f"{W}x{H}x{D} b={b} {wall} "
+                            f"{'empty' if empty else 'solids'}")
+        for (W, H, D), obs in (((512, 256, 256), big_sphere(512, 256, 256)),
+                               ((128, 64, 64), flagship_sphere())):
+            pad = (D + 2, H + 2, W + 2)
+            m = build_masks(obs, device="cuda")
+            reach = 40.0 / W
+            vel = [self.rand(rng, pad, -reach, reach) * m.keep_scalar
+                   for _ in range(3)]
+            dens = self.rand(rng, pad, 0.0, 1.0) * m.keep_scalar
+            tag = f"{W}x{H}x{D} sphere"
+            for b, prev in ((1, vel[0] * 0.9), (0, dens)):
+                args = (b, prev, *vel, m, 0.05)
+                kf = lambda: advect_compat(*args)   # noqa: E731
+                pf = lambda: advect(*args)          # noqa: E731
+                self.compare_bits("advect_compat", kf(), pf(),
+                                  f"{tag} b={b}")
+                interior = [v[1:-1, 1:-1, 1:-1] for v in vel]
+                others = interior[1:] if b else interior
+                moved = (prev, *others, m.fluid_i, m.keep_scalar, kf())
+                if b and W == 512:
+                    # the result line's row: the big grid's velocity call
+                    self.time_pair("advect_compat", kf, pf, 20, tag)
+                    self.bound("advect_compat", moved,
+                               OPS_PER_CELL["advect_compat"] * W * H * D)
+                else:
+                    print(f"   advect_compat  {tag} b={b}: kernel "
+                          f"{self.event_ms(kf, 20):.4f} ms, plain "
+                          f"{self.event_ms(pf, 5):.4f} ms per call",
+                          flush=True)
+                    self.bound("advect_compat", moved,
+                               OPS_PER_CELL["advect_compat"] * W * H * D,
+                               record=False)
+                dev = measure_body(kf, 10, "cuda") * 1e3
+                nbytes = sum(t.numel() * t.element_size() for t in moved)
+                print(f"   advect_compat  {tag} b={b}: device (graph "
+                      f"replay) {dev:.4f} ms, {nbytes / dev / 1e9:.3f} "
+                      f"TB/s, {100 * nbytes / HBM_BYTES_PER_S / dev / 1e-3:.2f}"
+                      f" % of the bound", flush=True)
+            del m, vel, dens
+            torch.cuda.empty_cache()
+
     def compat_window(self):
         """Compat with advect_window=1 through the entry point: the parity
         gate, the gathers' counts, bitwise equal to the window-0 run."""
@@ -1250,7 +1343,7 @@ class Smoke:
         base = SimParams(div_stats=False, step_stats=False)
         wt = WindTunnel(base.replace(advect_window=1), device="cuda")
         self.run_path(wt, 100, "compat window 3/2/4 per step", rbgs_solve=3,
-                      project_empty=2, trilinear_gather=4)
+                      project_empty=2, advect_compat=4)
         self.check_parity(wt)
         wt0 = WindTunnel(base, device="cuda")
         wt0.simulate(100)
@@ -1260,7 +1353,7 @@ class Smoke:
         ws = WindTunnel(base.replace(advect_window=1),
                         obstacles=flagship_sphere(), device="cuda")
         self.run_path(ws, 20, "sphere compat window", rbgs_solve_keep=3,
-                      project_masked=2, trilinear_gather=4)
+                      project_masked=2, advect_compat=4)
         self.check_scene(ws, "sphere compat window 128x64x64")
         ws0 = WindTunnel(base, obstacles=flagship_sphere(), device="cuda")
         ws0.simulate(20)
@@ -1272,7 +1365,7 @@ class Smoke:
         base = SimParams(mode="fast", div_stats=False, step_stats=False)
         wt = WindTunnel(base.replace(advect_window=1), device="cuda")
         self.run_path(wt, 100, "fast window", rbgs_solve=3, project_empty=2,
-                      trilinear_gather=4, pad_bounds=1)
+                      trilinear_gather=3, pad_bounds=1, advect_compat=1)
         self.check_state(wt, "fast window 128x64x64")
         wt0 = WindTunnel(base, device="cuda")
         wt0.simulate(100)
@@ -2292,6 +2385,8 @@ PHASES = [
      "route_times"),
     ("variant_kernels", "kernels vs plain: trilinear gather and the variants",
      "variant_kernels"),
+    ("advect_compat", "kernels vs plain: compat advection in one launch "
+     "(K19)", "advect_compat"),
     ("compat_window", "compat with advect_window=1, 100 steps",
      "compat_window"),
     ("fast_window", "fast with advect_window=1, 100 steps", "fast_window"),

@@ -22,7 +22,10 @@ show which kernels carried it:
 - ``project_stream_masked``  (kernels/project_stream.py)  one per streamed
   obstacle projection
 - ``trilinear_gather``       (kernels/advect_compat.py)   one per trilinear
-  sample of compat or fast advection with ``advect_window > 0``
+  sample of fast advection's velocity with ``advect_window > 0``
+- ``advect_compat``          (kernels/advect_compat.py)   one per whole
+  ``ops.advect.advect`` call on the card: compat's four a step, fast's
+  density
 - ``rbgs_solve3``            (kernels/linsolve.py)        one per fused
   three-field diffusion (no route of the step takes it; the JAX package
   gates it off)
@@ -90,7 +93,7 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0,
             "dma_stream": 0, "transpose": 0, "strided_copy": 0,
             "lerp_pass": 0, "rbgs_solve_mxu": 0, "lerpcost_pass": 0,
-            "step_stats": 0}
+            "step_stats": 0, "advect_compat": 0}
 
 
 def reset_launches() -> None:

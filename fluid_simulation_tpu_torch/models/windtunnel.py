@@ -22,9 +22,11 @@ vorticity confinement and the step's statistics go through the
 hand-written kernels' wrappers (``kernels/``), in empty and obstacle
 scenes; each wrapper launches on a CUDA tensor and runs its plain version
 on the CPU. With rbgs, big grids stream their solves and projections
-(``_solve_route``); compat and fast advection with ``advect_window > 0``
-sample through the trilinear kernel (``kernels/advect_compat.py``), and
-split ignores the window, as in the JAX package. A configuration whose
+(``_solve_route``); on the card every ``ops.advect.advect`` call, compat's
+four and fast's density, runs whole in one kernel
+(``kernels/advect_compat.py::advect_compat``), whatever the window; fast's
+velocity samples through the trilinear kernel with ``advect_window > 0``,
+and split ignores the window, as in the JAX package. A configuration whose
 kernels are not ported yet raises ``NotImplementedError`` instead of
 running plain torch. With ``use_pallas=False`` the step is plain torch on
 any device.
@@ -44,7 +46,7 @@ import torch
 from fluid_simulation_tpu_torch.config import SimParams
 from fluid_simulation_tpu_torch.kernels import _build, linsolve_stream
 from fluid_simulation_tpu_torch.kernels.advect_compat import (
-    trilinear_gather_window)
+    advect_compat, trilinear_gather_window)
 from fluid_simulation_tpu_torch.kernels.advect_split import (
     advect_split, advect_split_plain)
 from fluid_simulation_tpu_torch.kernels.bounds import (
@@ -213,10 +215,14 @@ def simulation_step(state: FluidState, masks: SceneMasks,
     runs in a span (``utils/profiling.span``): ``fst.step`` around
     ``fst.inlets``, ``fst.diffuse``, ``fst.project`` (twice),
     ``fst.advect``, ``fst.confine``, ``fst.advect_density`` and
-    ``fst.stats``. Inside the advection phases each backtrace of compat
-    and fast runs in ``fst.backtrace`` (compat 4, fast 2 a step), each
-    trilinear sample in ``fst.gather`` (4 a step), and each padding or
-    ``set_bounds`` in ``fst.bounds`` (split 2, fast 2, compat 4 a step)."""
+    ``fst.stats``. Inside the advection phases each trilinear sample of
+    compat and fast runs in ``fst.gather`` (4 a step) and each padding or
+    ``set_bounds`` in ``fst.bounds``, each backtrace in ``fst.backtrace``:
+    compat 4 backtraces and 4 ``set_bounds`` a step, fast 2 and 2 (its
+    shared velocity backtrace and padding, density's), split 2 paddings.
+    On the card with ``use_pallas`` an ``advect`` call is one kernel
+    launch in ``fst.gather`` and opens neither of the others: compat then
+    opens no ``fst.backtrace`` or ``fst.bounds``, fast one of each."""
     with span("fst.step"):
         return _step(state, masks, params)
 
@@ -236,19 +242,23 @@ def _step(state: FluidState, masks: SceneMasks,
     with span("fst.project"):
         vx, vy, vz = _project_dispatch(vx, vy, vz, masks, p)
 
-    # the trilinear kernel samples compat and fast advection with a window;
-    # the plain path never takes it
+    # the trilinear kernel samples fast's velocity with a window; on the
+    # card each advect call is one kernel launch (the plain path never
+    # takes either). advect's arguments stay positional: the benchmark's
+    # roofline reads the first nine, and wrappers of advect pass *args.
     sample = (trilinear_gather_window if p.use_pallas and p.advect_window > 0
               else trilinear_gather)
+    fused = (advect_compat if p.use_pallas and _build.on_card(vx)
+             else None)
     with span("fst.advect"):
         if p.mode == "compat":
             # sequential component advection (simulation.cpp:125-127)
             vx2 = advect(1, pvx, vx, vy, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, sample)
+                         p.empty_scene, sample, fused)
             vy2 = advect(2, pvy, vx2, vy, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, sample)
+                         p.empty_scene, sample, fused)
             vz2 = advect(3, pvz, vx2, vy2, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, sample)
+                         p.empty_scene, sample, fused)
             vx, vy, vz = vx2, vy2, vz2
         elif p.mode == "fast":
             # one shared backtrace through the projected field, three
@@ -283,7 +293,7 @@ def _step(state: FluidState, masks: SceneMasks,
                                      (0,), masks, p)
         else:
             dens = advect(0, buffer, vx, vy, vz, masks, p.dt, p.wall_mode,
-                          p.empty_scene, sample)
+                          p.empty_scene, sample, fused)
 
     with span("fst.stats"):
         on = dict(divergence_on=p.div_stats, density_on=p.step_stats)

@@ -16,13 +16,16 @@ The eight corners are read with one direct index gather per corner offset.
 ``advect`` and ``gather`` take the sampler as an argument: this module's
 ``trilinear_gather`` by default, or a wrapper of the same signature that
 the step chooses (``kernels.advect_compat.trilinear_gather_window``), which
-gives the same values.
+gives the same values. ``advect`` also takes ``fused``, a callable of its
+first nine arguments that does the whole call and gives the same values
+(the step's one-launch kernel, ``kernels.advect_compat.advect_compat``).
 
 Spans (``utils/profiling.span``): ``backtrace`` runs in
 ``fst.backtrace``, ``gather`` runs each sample in ``fst.gather``;
-``advect`` runs its ``set_bounds`` in ``fst.bounds``. A compat step opens
-four of each; a fast step two backtraces (the shared one of the velocity
-and density's) and four gathers.
+``advect`` runs its ``set_bounds`` in ``fst.bounds``, and a ``fused`` call
+whole in ``fst.gather``, opening neither of the others. A plain compat
+step opens four of each; a fast step two backtraces (the shared one of the
+velocity and density's) and four gathers.
 """
 
 from __future__ import annotations
@@ -82,6 +85,14 @@ def gather(prev: torch.Tensor, xb, yb, zb,
         return sample(prev, xb, yb, zb)
 
 
+def backtrace_scales(dt: float, W: int, H: int, D: int):
+    """The backtrace's per-axis scales ``dt*W``, ``dt*H``, ``dt*D``, each
+    rounded to float32 as the reference computes them in float
+    (simulation.cpp:384-386)."""
+    dt = np.float32(dt)
+    return dt * np.float32(W), dt * np.float32(H), dt * np.float32(D)
+
+
 def backtrace(vx_i, vy_i, vz_i, dt: float, W: int, H: int, D: int, dtype):
     """Backtraced coordinates of every interior cell, clamped like the
     reference (simulation.cpp:384-390), in the span ``fst.backtrace``."""
@@ -90,10 +101,10 @@ def backtrace(vx_i, vy_i, vz_i, dt: float, W: int, H: int, D: int, dtype):
         xi = torch.arange(1, W + 1, dtype=dtype, device=dev).reshape(1, 1, W)
         yi = torch.arange(1, H + 1, dtype=dtype, device=dev).reshape(1, H, 1)
         zi = torch.arange(1, D + 1, dtype=dtype, device=dev).reshape(D, 1, 1)
-        dt = np.float32(dt)
-        xb = xi - as_scalar(dt * np.float32(W), dtype) * vx_i
-        yb = yi - as_scalar(dt * np.float32(H), dtype) * vy_i
-        zb = zi - as_scalar(dt * np.float32(D), dtype) * vz_i
+        cx, cy, cz = backtrace_scales(dt, W, H, D)
+        xb = xi - as_scalar(cx, dtype) * vx_i
+        yb = yi - as_scalar(cy, dtype) * vy_i
+        zb = zi - as_scalar(cz, dtype) * vz_i
         lo = as_scalar(0.5, dtype)
         xb = xb.clamp(lo, as_scalar(np.float32(W) + np.float32(0.5), dtype))
         yb = yb.clamp(lo, as_scalar(np.float32(H) + np.float32(0.5), dtype))
@@ -112,11 +123,18 @@ def advect(
     wall_mode: str = "reference",
     empty_scene: bool = False,
     sample=trilinear_gather,
+    fused=None,
 ) -> torch.Tensor:
     """Advect ``prev`` through the velocity field; returns a new padded
     field. For ``b in (1, 2, 3)`` component ``b`` of the backtrace velocity
     is read from ``prev`` (simulation.cpp:380-382); pass the current
-    vx/vy/vz. ``sample`` is the trilinear sampler (``gather``)."""
+    vx/vy/vz. ``sample`` is the trilinear sampler (``gather``). ``fused``,
+    when given, does the whole call from the first nine arguments, in
+    ``fst.gather``: the call is its trilinear sample."""
+    if fused is not None:
+        with span("fst.gather"):
+            return fused(b, prev, vx, vy, vz, masks, dt, wall_mode,
+                         empty_scene)
     D2, H2, W2 = prev.shape
     W, H, D = W2 - 2, H2 - 2, D2 - 2
 

@@ -58,3 +58,97 @@ def test_pad_bounds_bitwise_to_plain(dhw, bs, wall_mode, masked):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+# (D, H, W) of K19's cases: one-cell axes, a ragged 37x11x9, x extents
+# over several of a lane's chunks, and the 512x256x256 tunnel
+K19_SHAPES = [(1, 1, 1), (2, 3, 5), (9, 11, 37), (5, 3, 130), (3, 2, 600),
+              (256, 256, 512)]
+
+
+def _k19_case(dhw, scene, reach, seed):
+    """Padded prev/vx/vy/vz/dens on the card, masks and dt. ``reach``
+    "clamp": backtraces up to 1.2 grid extents, so they clamp at every
+    face; "near": a few cells, as a developed flow. A quarter of the
+    velocities are 0, so those backtraces land on exact integers. The
+    scene: "empty", random 0/1 solids on small grids, the bench sphere at
+    512x256x256."""
+    from fluid_simulation_tpu_torch.scene.masks import build_masks
+    from fluid_simulation_tpu_torch.scene.primitives import (
+        big_sphere, empty_obstacles)
+    D, H, W = dhw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pad = (D + 2, H + 2, W + 2)
+    vmax = 12.0 if reach == "clamp" else 40.0 / max(dhw)
+
+    def field(scale):
+        return (torch.rand(pad, generator=g, device="cuda") * 2 - 1) * scale
+
+    vel = [field(vmax) for _ in range(3)]
+    for v in vel:
+        v[torch.rand(pad, generator=g, device="cuda") < 0.25] = 0.0
+    dens = field(1.0).abs()
+    if scene == "empty":
+        obs = empty_obstacles(W, H, D)
+    elif dhw == (256, 256, 512):
+        obs = big_sphere(W, H, D)
+    else:
+        obs = empty_obstacles(W, H, D)
+        solid = torch.rand((D, H, W), generator=g, device="cuda") < 0.2
+        obs[1:-1, 1:-1, 1:-1] = solid.float().cpu().numpy()
+    return vel, dens, build_masks(obs, device="cuda"), 0.1
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dhw", K19_SHAPES)
+@pytest.mark.parametrize("b", [0, 1, 2, 3])
+@pytest.mark.parametrize("scene", ["empty", "solids"])
+@pytest.mark.parametrize("wall_mode", ["reference", "noslip"])
+@pytest.mark.parametrize("reach", ["clamp", "near"])
+def test_advect_compat_bitwise_to_plain(dhw, b, scene, wall_mode, reach):
+    """K19 equals the plain call ``ops.advect.advect`` bit for bit (a
+    zero's sign too), one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from fluid_simulation_tpu_torch.kernels import LAUNCHES
+    from fluid_simulation_tpu_torch.kernels.advect_compat import (
+        advect_compat)
+    from fluid_simulation_tpu_torch.ops.advect import advect
+    (vx, vy, vz), dens, m, dt = _k19_case(dhw, scene, reach, seed=7 + b)
+    prev = dens if b == 0 else (vx, vy, vz)[b - 1] * 0.5
+    empty = scene == "empty"
+    before = LAUNCHES["advect_compat"]
+    got = advect_compat(b, prev, vx, vy, vz, m, dt, wall_mode, empty)
+    assert LAUNCHES["advect_compat"] == before + 1
+    assert _same_bits(got, advect(b, prev, vx, vy, vz, m, dt, wall_mode,
+                                  empty))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dhw", [(9, 11, 37), (256, 256, 512)])
+@pytest.mark.parametrize("scene", ["empty", "solids"])
+def test_advect_compat_chain_bitwise_to_plain(dhw, scene):
+    """Three chained velocity advects and the density advect, as a compat
+    step makes them (simulation.cpp:125-127), through K19 and through the
+    plain call: the four outputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from fluid_simulation_tpu_torch.kernels.advect_compat import (
+        advect_compat)
+    from fluid_simulation_tpu_torch.ops.advect import advect
+    (vx, vy, vz), dens, m, dt = _k19_case(dhw, scene, "near", seed=11)
+    pv = [v * 0.9 for v in (vx, vy, vz)]
+    empty = scene == "empty"
+    outs = []
+    for fn in (advect_compat, advect):
+        x2 = fn(1, pv[0], vx, vy, vz, m, dt, "reference", empty)
+        y2 = fn(2, pv[1], x2, vy, vz, m, dt, "reference", empty)
+        z2 = fn(3, pv[2], x2, y2, vz, m, dt, "reference", empty)
+        outs.append((x2, y2, z2, fn(0, dens, x2, y2, z2, m, dt,
+                                    "reference", empty)))
+    for a, b in zip(*outs):
+        assert _same_bits(a, b)

@@ -7,10 +7,12 @@ is swapped for a stub that checks what the real launcher would be given
 (shape, dtype, contiguity, no aliasing of inputs) and writes the plain
 result. The production steps then run through the real wrappers: the
 empty split and compat steps, obstacle scenes and no-slip walls with
-vorticity, compat and fast advection with and without a window, the
-step's statistics (one launch a step, no plain reduction, no
-host-to-device tensor), and the launch counters must show which kernels
-ran, per step. Unported configurations must raise on the CUDA branch.
+vorticity, compat and fast advection with and without a window (each
+``ops.advect.advect`` call one K19 launch, with the benchmark's entry
+points unnested and the spans the card opens), the step's statistics
+(one launch a step, no plain reduction, no host-to-device tensor), and
+the launch counters must show which kernels ran, per step. Unported
+configurations must raise on the CUDA branch.
 """
 
 import ctypes
@@ -32,7 +34,8 @@ from fluid_simulation_tpu_torch.kernels import (
 from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
-from fluid_simulation_tpu_torch.ops.advect import trilinear_gather
+from fluid_simulation_tpu_torch.ops import bounds as ops_bounds
+from fluid_simulation_tpu_torch.ops.advect import advect, trilinear_gather
 from fluid_simulation_tpu_torch.scene.masks import build_masks
 from fluid_simulation_tpu_torch.scene.primitives import (
     add_sphere, empty_obstacles)
@@ -104,6 +107,44 @@ def stub_k9(prev, xb, yb, zb, out):
         _operand(t, interior)
     _distinct(prev, xb, yb, zb, out)
     out.copy_(trilinear_gather(prev, xb, yb, zb))
+
+
+def stub_k19(prev, u, v, w, fluid_i, keep, out, scales, neg_mask):
+    """K19 from its own arguments: the backtrace with the scales it is
+    given, the gather, the mask, the faces by the sign mask, the keep."""
+    interior = [n - 2 for n in prev.shape]
+    for t in (prev, u, v, w, out):
+        _operand(t, prev.shape)
+    for t in (prev, u, v, w):
+        _distinct(t, out)
+    assert (fluid_i is None) == (keep is None)
+    if fluid_i is not None:
+        _operand(fluid_i, interior)
+        _operand(keep, prev.shape)
+        _distinct(fluid_i, keep, out)
+    assert len(scales) == 3
+    assert all(type(c) is np.float32 for c in scales), scales
+    inner = (slice(1, -1),) * 3
+    coords = []
+    for axis, (f, c, n) in enumerate(zip((u, v, w), scales,
+                                         interior[::-1])):
+        shape = [1, 1, 1]
+        shape[2 - axis] = n
+        at = torch.arange(1, n + 1, dtype=torch.float32).reshape(shape)
+        hi = float(np.float32(n) + np.float32(0.5))
+        coords.append((at - float(c) * f[inner]).clamp(0.5, hi))
+    smp = trilinear_gather(prev, *coords)
+    o = torch.zeros_like(prev)
+    o[inner] = smp if fluid_i is None else smp * fluid_i
+    sx, sy, sz = (-1.0 if neg_mask >> axis & 1 else 1.0 for axis in range(3))
+    assert neg_mask < 8
+    o[1:-1, 1:-1, 0] = sx * o[1:-1, 1:-1, 1]
+    o[1:-1, 1:-1, -1] = o[1:-1, 1:-1, -2]
+    o[1:-1, 0, 1:-1] = sy * o[1:-1, 1, 1:-1]
+    o[1:-1, -1, 1:-1] = sy * o[1:-1, -2, 1:-1]
+    o[0, 1:-1, 1:-1] = sz * o[1, 1:-1, 1:-1]
+    o[-1, 1:-1, 1:-1] = sz * o[-2, 1:-1, 1:-1]
+    out.copy_(o if keep is None else o * keep)
 
 
 def stub_k2(vx, vy, vz, rhs, p, acc, wall_mode):
@@ -354,6 +395,7 @@ def card(monkeypatch):
                             (k1, "_launch_unpacked", stub_k1_unpacked),
                             (k1, "_launch3", stub_k5),
                             (k9, "_launch", stub_k9),
+                            (k9, "_launch_advect", stub_k19),
                             (k2, "_launch", stub_k2),
                             (k2, "_launch_masked", stub_k6),
                             (k3, "_launch", stub_k3), (k4, "_launch", stub_k4),
@@ -430,13 +472,16 @@ def _run_two_steps(p, obstacles=None, zero_edges=False):
 
 
 @pytest.mark.parametrize("mode,counts", [
-    ("split", (3, 2, 2, 2)), ("compat", (3, 2, 0, 0)), ("fast", (3, 2, 0, 1))])
+    ("split", (3, 2, 2, 2, 0)), ("compat", (3, 2, 0, 0, 4)),
+    ("fast", (3, 2, 0, 1, 1))])
 def test_production_step_launch_counts(card, mode, counts):
+    """Each advect call on the card is one K19 launch: compat's four,
+    fast's density."""
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode)
     per_step = _run_two_steps(p)
     assert per_step == _step_counts(**dict(zip(
-        ("rbgs_solve", "project_empty", "advect_split", "pad_bounds"),
-        counts)))
+        ("rbgs_solve", "project_empty", "advect_split", "pad_bounds",
+         "advect_compat"), counts)))
 
 
 SPHERE = "sphere"
@@ -445,9 +490,10 @@ SPHERE = "sphere"
 @pytest.mark.parametrize("mode,scene,change,nonzero", [
     ("split", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2,
                                advect_split=2, pad_bounds_masked=2)),
-    ("compat", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2)),
+    ("compat", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2,
+                                advect_compat=4)),
     ("fast", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2,
-                              pad_bounds_masked=1)),
+                              pad_bounds_masked=1, advect_compat=1)),
     ("split", None, dict(wall_mode="noslip", vorticity=5.0),
      dict(rbgs_solve=3, project_empty=2, advect_split=2, pad_bounds=2,
           confinement=1)),
@@ -455,7 +501,7 @@ SPHERE = "sphere"
      dict(rbgs_solve_keep=3, project_masked=2, advect_split=2,
           pad_bounds_masked=2, confinement=1)),
     ("compat", None, dict(wall_mode="noslip", vorticity=5.0),
-     dict(rbgs_solve=3, project_empty=2, confinement=1)),
+     dict(rbgs_solve=3, project_empty=2, confinement=1, advect_compat=4)),
 ])
 def test_obstacle_and_vorticity_step_launch_counts(card, mode, scene, change,
                                                    nonzero):
@@ -517,15 +563,17 @@ def test_streamed_step_launch_counts(card, monkeypatch, streamed, scene,
 def test_streamed_compat_step_samples_plain(card, monkeypatch, scene):
     """The default mode on a streamed-route grid (the route constant
     lowered to 16x8x8): compat streams its 3 solves and 2 projections,
-    pads only the projections' two stacks, and samples its four advects
-    through the plain gather at window 0, never the trilinear kernel.
-    Equal to the plain step (``_run_two_steps``)."""
+    pads only the projections' two stacks, and runs each of its four
+    advects whole in K19 at window 0, never the trilinear kernel; the
+    plain reference samples through the plain gather. ``advect`` takes
+    all its arguments by position, as wrappers of it pass them. Equal to
+    the plain step (``_run_two_steps``)."""
     monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
-    samplers = []
+    calls = []
     advect = wtm.advect
 
     def recording(*args):
-        samplers.append(args[-1])
+        calls.append((len(args), args[-2], args[-1]))
         return advect(*args)
     monkeypatch.setattr(wtm, "advect", recording)
     p = SimParams(width=W, height=H, depth=D, acc=5)
@@ -533,9 +581,11 @@ def test_streamed_compat_step_samples_plain(card, monkeypatch, scene):
     want = (dict(rbgs_solve_stream_keep=3, project_stream_masked=2,
                  pad_bounds_masked=2) if scene else
             dict(rbgs_solve_stream=3, project_stream=2, pad_bounds=2))
-    assert _run_two_steps(p, obs, zero_edges=True) == _step_counts(**want)
+    assert _run_two_steps(p, obs, zero_edges=True) == _step_counts(
+        advect_compat=4, **want)
     # two steps of the kernel branch, then two of the plain reference
-    assert samplers == [trilinear_gather] * 16
+    assert calls == ([(11, trilinear_gather, k9.advect_compat)] * 8
+                     + [(11, trilinear_gather, None)] * 8)
 
 
 def test_plain_reference_run_launches_nothing(card):
@@ -563,23 +613,24 @@ def test_unported_config_raises_on_card(card, change):
 
 
 @pytest.mark.parametrize("mode,scene,nonzero", [
-    ("compat", None, dict(rbgs_solve=3, project_empty=2, trilinear_gather=4)),
+    ("compat", None, dict(rbgs_solve=3, project_empty=2, advect_compat=4)),
     ("compat", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
-                            trilinear_gather=4)),
-    ("fast", None, dict(rbgs_solve=3, project_empty=2, trilinear_gather=4,
-                        pad_bounds=1)),
+                            advect_compat=4)),
+    ("fast", None, dict(rbgs_solve=3, project_empty=2, trilinear_gather=3,
+                        pad_bounds=1, advect_compat=1)),
     ("fast", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
-                          trilinear_gather=4, pad_bounds_masked=1)),
+                          trilinear_gather=3, pad_bounds_masked=1,
+                          advect_compat=1)),
     ("split", None, dict(rbgs_solve=3, project_empty=2, advect_split=2,
                          pad_bounds=2)),
     ("split", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
                            advect_split=2, pad_bounds_masked=2)),
 ])
 def test_window_step_launch_counts(card, mode, scene, nonzero):
-    """advect_window > 0 runs on the card: compat's three velocity advects
-    and fast's three gathers, and the density advect of both, sample
-    through the trilinear kernel (4 per step); split ignores the window and
-    keeps its counts. Each equals the plain step."""
+    """advect_window > 0 runs on the card: fast's three velocity gathers
+    sample through the trilinear kernel; every advect call, compat's four
+    and fast's density, is one K19 launch whatever the window; split
+    ignores the window and keeps its counts. Each equals the plain step."""
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode,
                   advect_window=1)
     obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
@@ -589,13 +640,17 @@ def test_window_step_launch_counts(card, mode, scene, nonzero):
 @pytest.mark.parametrize("mode", ["compat", "fast"])
 @pytest.mark.parametrize("window", [0, 1])
 def test_plain_gathers_are_counted(card, mode, window):
-    """Each of a step's four trilinear samples is a launch of the trilinear
-    kernel with a window, and a plain gather, which launches nothing, at
-    window 0; both equal the plain step (``_run_two_steps``)."""
+    """Each of fast's three velocity samples a step is a launch of the
+    trilinear kernel with a window, and a plain gather, which launches
+    nothing, at window 0; each advect call (compat 4 a step, fast 1) is
+    one K19 launch at either window. All equal the plain step
+    (``_run_two_steps``)."""
     p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode,
                   advect_window=window)
     _run_two_steps(p, add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2))
-    assert LAUNCHES["trilinear_gather"] == (8 if window else 0)
+    velocity = 6 if mode == "fast" and window else 0
+    assert LAUNCHES["trilinear_gather"] == velocity
+    assert LAUNCHES["advect_compat"] == (8 if mode == "compat" else 2)
 
 
 @pytest.mark.parametrize("mode", ["compat", "fast"])
@@ -605,6 +660,138 @@ def test_plain_window_run_launches_nothing(card, mode):
                   use_pallas=False, advect_window=2)
     WindTunnel(p, device=CPU).simulate(1)
     assert set(LAUNCHES.values()) == {0}
+
+
+def _wild_state(p, seed):
+    """Padded fields whose backtraces clamp at every face (velocities up to
+    30 cells' worth a step) and land on exact integers (zero velocity on a
+    third of the cells)."""
+    rng = np.random.default_rng(seed)
+    still = rng.uniform(size=p.padded_shape) < 1 / 3
+    vel = [np.where(still, 0.0, rng.uniform(-30, 30, size=p.padded_shape))
+           for _ in range(3)]
+    dens = rng.uniform(0, 1, size=p.padded_shape)
+    return [torch.tensor(f, dtype=torch.float32) for f in vel + [dens]]
+
+
+@pytest.mark.parametrize("b", [0, 1, 2, 3])
+@pytest.mark.parametrize("scene", [None, SPHERE])
+@pytest.mark.parametrize("wall_mode", ["reference", "noslip"])
+def test_advect_compat_launcher_arguments(card, monkeypatch, b, scene,
+                                          wall_mode):
+    """K19's launcher gets the backtrace's float32 scales, component ``b``
+    from ``prev`` and the others from the current fields, ``fluid_i`` and
+    the keep mask of ``b`` (none in an empty scene) and the face signs of
+    ``b``; the call equals ``ops.advect.advect``'s plain composition bit
+    for bit, clamped and integer backtraces included."""
+    p = SimParams(width=W, height=H, depth=D, dt=0.1)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    m = build_masks(obs if scene else empty_obstacles(W, H, D), device=CPU)
+    vx, vy, vz, dens = _wild_state(p, seed=b)
+    prev = dens if b == 0 else (vx, vy, vz)[b - 1].clone()
+    empty = scene is None
+    seen = []
+
+    def launch(*args):
+        seen.append(args)
+        stub_k19(*args)
+    monkeypatch.setattr(k9, "_launch_advect", launch)
+    got = k9.advect_compat(b, prev, vx, vy, vz, m, p.dt, wall_mode, empty)
+    want = advect(b, prev, vx, vy, vz, m, p.dt, wall_mode, empty)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert LAUNCHES["advect_compat"] == 1 and len(seen) == 1
+    a_prev, u, v, w, fluid_i, keep, out, scales, neg = seen[0]
+    assert a_prev is prev and out is got
+    assert [t is prev for t in (u, v, w)] == [b == axis for axis in (1, 2, 3)]
+    assert [t is f for t, f in zip((u, v, w), (vx, vy, vz))] == [
+        b != axis for axis in (1, 2, 3)]
+    dt = np.float32(p.dt)
+    assert scales == (dt * np.float32(W), dt * np.float32(H),
+                      dt * np.float32(D))
+    if empty:
+        assert fluid_i is None and keep is None
+    else:
+        assert fluid_i is m.fluid_i
+        assert keep is (m.keep_vel if b else m.keep_scalar)
+    signs = ops_bounds.face_signs(b, wall_mode)
+    assert neg == sum(1 << axis for axis in range(3) if signs[axis] < 0)
+
+
+def test_advect_compat_refuses_bad_operands(card):
+    m = build_masks(empty_obstacles(W, H, D), device=CPU)
+    f = torch.zeros(PAD)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k9.advect_compat(0, f.bfloat16(), f, f, f, m, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.advect_compat(0, f, f, f, torch.zeros(PAD[::-1]).transpose(0, 2),
+                         m, 0.05)
+    with pytest.raises(ValueError, match="shape"):
+        k9.advect_compat(1, f, f, torch.zeros((D, H, W)), f, m, 0.05)
+    with pytest.raises(ValueError, match="b must be"):
+        k9.advect_compat(4, f, f, f, f, m, 0.05)
+    with pytest.raises(ValueError, match="wall_mode"):
+        k9.advect_compat(0, f, f, f, f, m, 0.05, "slip")
+    small = build_masks(empty_obstacles(W, H, D - 2), device=CPU)
+    with pytest.raises(ValueError, match="shape"):
+        k9.advect_compat(0, f, f, f, f, small, 0.05)
+    assert set(LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("mode", ["compat", "fast"])
+def test_card_step_advect_entry_points_do_not_nest(card, monkeypatch,
+                                                   streamed, mode):
+    """The benchmark's entry points wrapped as a traced run wraps them
+    (``windbench.harness.entry_spans``): a compat step on the card records
+    four ``ops.advect:advect`` calls with the bytes the roofline counts,
+    fast one (density's), and no ``pad_bounds`` call inside any of them
+    (an entry's calls are recorded as they end, so a nested one would come
+    first). Streamed, the projections' two tails are the only padding."""
+    from windbench import harness
+    from windbench.metrics import compat_advect_roofline as car
+    from windbench.metrics import pad_bounds_roofline as pbr
+    if streamed:
+        monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode)
+    wt = WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4,
+                                            4, 2), device=CPU)
+    wt.state = FluidState(*_random_state(p))
+    readers = {"compat_advect_roofline": car, "pad_bounds_roofline": pbr}
+    with harness.entry_spans(readers) as calls:
+        wt.step()
+    assert wtm.advect is advect and wtm.pad_bounds is k4.pad_bounds
+    adv = [("compat_advect_roofline", car.bytes_moved(D, H, W, b > 0, True))
+           for b in (1, 2, 3, 0)]
+    pad = [("pad_bounds_roofline", pbr.bytes_moved(D, H, W, 3, True))]
+    if mode == "fast":
+        tail = [("pad_bounds_roofline", pbr.bytes_moved(D, H, W, 3, True))]
+        adv = tail + adv[3:]
+    want = (pad + adv[:-1] + pad + adv[-1:] if streamed else adv)
+    assert calls == want
+    assert LAUNCHES["advect_compat"] == (4 if mode == "compat" else 1)
+
+
+@pytest.mark.parametrize("mode", ["compat", "fast"])
+def test_card_advect_spans(card, mode):
+    """On the card each advect call runs whole in ``fst.gather`` and
+    opens no span inside it: compat opens no ``fst.backtrace`` and no
+    ``fst.bounds`` (the resident projections pad nothing), fast its shared
+    velocity backtrace and padding only."""
+    from torch.profiler import ProfilerActivity, profile
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode)
+    wt = WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4,
+                                            4, 2), device=CPU)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        wt.step()
+    events = [e for e in prof.events() if e.name.startswith("fst.")]
+    gathers = sorted(e.cpu_parent.name for e in events
+                     if e.name == "fst.gather")
+    assert gathers == ["fst.advect"] * 3 + ["fst.advect_density"]
+    assert not [e for e in events if e.cpu_parent is not None
+                and e.cpu_parent.name == "fst.gather"]
+    for name in ("fst.backtrace", "fst.bounds"):
+        parents = [e.cpu_parent.name for e in events if e.name == name]
+        assert parents == ([] if mode == "compat" else ["fst.advect"])
 
 
 def _refuse_plain_stats(monkeypatch):
@@ -851,12 +1038,13 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
         -1, W + 2) * 4.0 + 8.0
     out32 = k24.lerpcost_pass(stack, plane, "full")
     out33 = kst.step_stats(vx, vy, vz, g, m)
+    out34 = k9.advect_compat(2, g, vx, vy, vz, m, 0.05, "noslip")
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
               out13, *out14, out15, out16, *out17, out18, *out19, *out20,
               out21, out22, out23, out24, out25, out26, out27, out28, out29,
-              out30, out31, out32, *out33):
+              out30, out31, out32, *out33, out34):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -904,6 +1092,7 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     # the statistics: the divergence bitwise, the sum the plain one
     for got, want in zip(out33, kst.step_stats_plain(vx, vy, vz, g, m)):
         assert torch.equal(got, want)
+    assert torch.equal(out34, advect(2, g, vx, vy, vz, m, 0.05, "noslip"))
     # every wrapper once; the colour-packed solves' sweep 1 adds one K1
     # keep solve and one blocked sweep
     assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
@@ -1303,7 +1492,8 @@ def test_sources_and_sign_mask():
     names = {s.name for s in _build.sources()}
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
-            "trilinear.cu", "rbgs_sweep.cu", "prestep.cu",
+            "trilinear.cu", "advect_compat.cu", "rbgs_sweep.cu",
+            "prestep.cu",
             "rbgs_cpack.cu", "probe.cu", "hbm.cu", "sweepcost.cu", "dma.cu",
             "transpose.cu", "rbgs_mxu.cu", "lerpcost.cu",
             "rbgs_tile.cuh", "common.cuh"} <= names

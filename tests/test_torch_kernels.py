@@ -11,7 +11,10 @@ measured max 2.4e-7). K3 agrees to 1e-5, the JAX suite's bound for its split
 kernel against the NumPy oracle (tests/test_advect_split.py:56; measured
 max 4.6e-6 after three chained lerps), and is bitwise equal to that
 uncontracted NumPy oracle. K4 only moves data, exact signs and 0/1 mask
-products: bitwise. The obstacle forms (K1 keep, K6) and K10 are held to the
+products: bitwise. K19's plain version, a whole compat advect, is held
+bitwise to the JAX package's compat advect (its XLA backtrace, gather and
+setBounds, the stages the kernel fuses), as tests/test_torch_ops.py holds
+the composable op. The obstacle forms (K1 keep, K6) and K10 are held to the
 same bounds as their empty-scene kernels; each is also bitwise equal to the
 port's composable ops, which the card's plain versions repeat.
 """
@@ -29,8 +32,11 @@ from fluid_simulation_tpu.kernels.linsolve_pallas import pallas_rbgs_solve
 from fluid_simulation_tpu.kernels.project_pallas import (
     pallas_project_empty, pallas_project_masked)
 from fluid_simulation_tpu.kernels.vorticity_pallas import pallas_confinement
+from fluid_simulation_tpu.ops.advect import advect as jax_advect
 from fluid_simulation_tpu.scene.masks import build_masks as jax_build_masks
 from fluid_simulation_tpu.scene.primitives import add_sphere, empty_obstacles
+from fluid_simulation_tpu_torch.kernels.advect_compat import (
+    advect_compat, advect_compat_plain)
 from fluid_simulation_tpu_torch.kernels.advect_split import advect_split_plain
 from fluid_simulation_tpu_torch.kernels.bounds import pad_bounds_plain
 from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve_plain
@@ -295,3 +301,32 @@ def test_k10_confinement_matches_pallas(kind, dims):
     # runs
     for a, b in zip(got, apply_confinement(*map(_t, vel), tm, 5.0, 0.05)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# -- compat advection in one launch (K19) ---------------------------------
+
+@pytest.mark.parametrize("kind,dims", SCENES + [("empty", (W, H, D))])
+@pytest.mark.parametrize("b", [0, 1, 2, 3])
+@pytest.mark.parametrize("wall_mode", ["reference", "noslip"])
+def test_k19_plain_matches_jax_advect(kind, dims, b, wall_mode):
+    """K19's plain version (and its wrapper on a CPU tensor) against the
+    JAX package's compat advect, from velocities whose backtraces clamp at
+    every face and, where a velocity is zero, land on exact integers."""
+    empty = kind == "empty"
+    if empty:
+        obs = empty_obstacles(*dims)
+        jm, tm = jax_build_masks(jnp.asarray(obs)), build_masks(obs,
+                                                                device=CPU)
+    else:
+        jm, tm = _both_masks(kind, dims)
+    prev, vx, vy, vz = _fields(4, 50 + b, _padded(dims))
+    rng = np.random.default_rng(51 + b)
+    still = rng.uniform(size=vx.shape) < 0.25
+    vx, vy, vz = (np.where(still, 0.0, v * 12).astype(np.float32)
+                  for v in (vx, vy, vz))
+    want = jax_advect(b, *map(jnp.asarray, (prev, vx, vy, vz)), jm, 0.1,
+                      wall_mode, empty)
+    args = (b, *map(_t, (prev, vx, vy, vz)), tm, 0.1, wall_mode, empty)
+    got = advect_compat_plain(*args)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(advect_compat(*args), got)
