@@ -35,7 +35,8 @@ from fluid_simulation_tpu_torch.models import windtunnel as wtm
 from fluid_simulation_tpu_torch.models.windtunnel import (
     FluidState, init_state, simulation_step)
 from fluid_simulation_tpu_torch.ops import bounds as ops_bounds
-from fluid_simulation_tpu_torch.ops.advect import advect, trilinear_gather
+from fluid_simulation_tpu_torch.ops.advect import (
+    advect, backtrace, gather, trilinear_gather)
 from fluid_simulation_tpu_torch.scene.masks import build_masks
 from fluid_simulation_tpu_torch.scene.primitives import (
     add_sphere, empty_obstacles)
@@ -769,6 +770,31 @@ def test_card_step_advect_entry_points_do_not_nest(card, monkeypatch,
     want = (pad + adv[:-1] + pad + adv[-1:] if streamed else adv)
     assert calls == want
     assert LAUNCHES["advect_compat"] == (4 if mode == "compat" else 1)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_card_fast_samples_are_one_backtrace_and_three_gathers(
+        card, monkeypatch, streamed):
+    """``fast_advect_roofline``'s entry points wrapped as a traced run
+    wraps them: a fast step on the card records its shared backtrace and
+    its three velocity gathers, none nested in another, with the bytes the
+    roofline counts; density's advect is one K19 launch, which calls
+    neither."""
+    from windbench import harness
+    from windbench.metrics import fast_advect_roofline as far
+    if streamed:
+        monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode="fast")
+    wt = WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4,
+                                            4, 2), device=CPU)
+    wt.state = FluidState(*_random_state(p))
+    with harness.entry_spans({"fast_advect_roofline": far}) as calls:
+        wt.step()
+    assert wtm.backtrace is backtrace and wtm.gather is gather
+    name = "fast_advect_roofline"
+    assert calls == [(name, far.backtrace_bytes(D, H, W))] + \
+        [(name, far.gather_bytes(D, H, W))] * 3
+    assert LAUNCHES["advect_compat"] == 1
 
 
 @pytest.mark.parametrize("mode", ["compat", "fast"])
