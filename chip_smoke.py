@@ -73,15 +73,22 @@ final ``ok`` line):
     ragged shapes (b 0-3, both walls, empty and with solids, backtraces
     clamped at every face and on exact integers) and at 512x256x256 and
     128x64x64 with their spheres: its event time beside the plain call's,
-    its bound, its device time by CUDA-graph replay;
+    its bound, its device time by CUDA-graph replay; then K20, fast's
+    shared backtrace and three velocity samples in one launch
+    (``advect_fast``), against the plain composition bitwise at ragged
+    shapes (backtraces clamped at every face and on exact integers) and at
+    512x256x256 and 128x64x64 with their spheres: its device time by
+    CUDA-graph replay and its share of the bound, its event time beside
+    the plain composition's;
 11. compat with ``advect_window=1`` for 100 steps: the parity gate, 3/2/4
     solves/projections/whole advects (K19, whatever the window) per step,
     the final state bitwise equal to the window-0 run's, ms/step of both;
     its sphere twin for 20 steps (solids exactly 0, equal to the window-0
     twin);
-12. fast with ``advect_window=1`` against fast without, 100 steps: 3
-    trilinear gathers (K9) and one whole density advect (K19) per step,
-    bitwise equal states, the residual bounds, ms/step of both;
+12. fast with ``advect_window=1`` against fast without, 100 steps: one
+    K20 launch (the velocity) and one whole density advect (K19) per step,
+    no trilinear gather (K9), bitwise equal states, the residual bounds,
+    ms/step of both;
 13. the sharded solve's sweep kernels (B15 packed, B20 padded) against
     their plain versions, bitwise, on the 256^3 slab of two ranks
     (128x256x256), the 128x64x64 slab of two (32x64x128) and a ragged
@@ -236,7 +243,8 @@ KERNELS = {
     "project_stream_masked": (
         "fluid_simulation_tpu_torch/csrc/project_stream.cu",
         "fluid_simulation_tpu/kernels/project_stream.py:504"),
-    # fast advection's velocity samples with advect_window > 0 (B19)
+    # the trilinear sample with a window (B19); no route since K20 took
+    # fast's velocity
     "trilinear_gather": ("fluid_simulation_tpu_torch/csrc/trilinear.cu",
                          "fluid_simulation_tpu/kernels/advect_compat.py:150"),
     # the variants (B16, B21, B18): gated off, never routed, opt-in in the
@@ -306,6 +314,11 @@ KERNELS = {
     "advect_compat": ("fluid_simulation_tpu_torch/csrc/advect_compat.cu",
                       "fluid_simulation_tpu/ops/advect.py:105 with "
                       "fluid_simulation_tpu/kernels/advect_compat.py:150"),
+    # fast's velocity: the XLA backtrace, three XLA gathers or K9's corner
+    # fetch, and the stack fused (row: 512x256x256, the bench sphere)
+    "advect_fast": ("fluid_simulation_tpu_torch/csrc/advect_fast.cu",
+                    "fluid_simulation_tpu/models/windtunnel.py:339-355 with "
+                    "fluid_simulation_tpu/kernels/advect_compat.py:150"),
 }
 # f32 operations per interior cell of each kernel's arithmetic (per sweep
 # for the solves), for the operations side of the bound
@@ -335,7 +348,10 @@ OPS_PER_CELL = {"rbgs_solve": 8, "rbgs_solve_keep": 9, "pad_bounds": 0,
                 "step_stats": 16,
                 # 3 backtraces (product, difference, clamp of 2), 3 floors,
                 # 3 fractions, 7 lerps of 3, the two mask products
-                "advect_compat": 3 * 4 + 3 + 3 + 21 + 2}
+                "advect_compat": 3 * 4 + 3 + 3 + 21 + 2,
+                # the backtrace, floors and fractions once, 7 lerps of 3
+                # for each of the three saves
+                "advect_fast": 3 * 4 + 3 + 3 + 3 * 21}
 # the JAX bench's big grids (W, H, D) and its step counts there
 # (bench.py:227-263)
 BIG = ((256, 128, 128, 10), (256, 256, 256, 4), (512, 256, 256, 3))
@@ -1182,6 +1198,7 @@ class Smoke:
         self.bound("trilinear_gather", (prev, xb, yb, zb, k9()),
                    OPS_PER_CELL["trilinear_gather"] * n)
         self.kern["trilinear_gather"]["library_ms"] = lib_ms
+        self.kern["trilinear_gather"]["launches"] = 0   # no route
 
         # K5 empty, with keep, with keep and no-slip walls; also against
         # three K1 calls
@@ -1335,6 +1352,69 @@ class Smoke:
             del m, vel, dens
             torch.cuda.empty_cache()
 
+    def advect_fast(self):
+        """K20 against the plain composition (``advect_fast_plain``)
+        bitwise: ragged shapes with backtraces that clamp at every face,
+        then 512x256x256 (the bench sphere) and 128x64x64 (the flagship
+        sphere) with the saves zero in solids; at both, its device time
+        (CUDA-graph replay) and share of the bound, and its event time
+        beside the plain composition's."""
+        import numpy as np
+        from fluid_simulation_tpu_torch.kernels.advect_fast import (
+            advect_fast, advect_fast_plain)
+        from fluid_simulation_tpu_torch.scene.masks import build_masks
+        from fluid_simulation_tpu_torch.scene.primitives import (
+            big_sphere, flagship_sphere)
+        from fluid_simulation_tpu_torch.tools.exp_transpose import (
+            measure_body)
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 20)
+        inner = (slice(1, -1),) * 3
+        for D, H, W in ((1, 1, 1), (9, 11, 37), (3, 2, 600)):
+            pad = (D + 2, H + 2, W + 2)
+            vel = [self.rand(rng, pad, -12.0, 12.0) for _ in range(3)]
+            vel[0][1, 1, :] = 0.0   # backtraces on exact integers
+            saves = [self.rand(rng, pad) for _ in range(3)]
+            views = [v[inner] for v in vel]
+            self.compare_bits("advect_fast", advect_fast(*views, saves, 0.1),
+                              advect_fast_plain(*views, saves, 0.1),
+                              f"{W}x{H}x{D}")
+        for (W, H, D), obs in (((512, 256, 256), big_sphere(512, 256, 256)),
+                               ((128, 64, 64), flagship_sphere())):
+            pad = (D + 2, H + 2, W + 2)
+            keep = build_masks(obs, device="cuda").keep_scalar
+            reach = 40.0 / W
+            vel = [self.rand(rng, pad, -reach, reach) * keep
+                   for _ in range(3)]
+            saves = [self.rand(rng, pad) * keep for _ in range(3)]
+            views = [v[inner] for v in vel]
+            tag = f"{W}x{H}x{D} sphere"
+            kf = lambda: advect_fast(*views, saves, 0.05)        # noqa: E731
+            pf = lambda: advect_fast_plain(*views, saves, 0.05)  # noqa: E731
+            want = pf()
+            self.compare_bits("advect_fast", kf(), want, tag)
+            moved = (*views, *saves, want)
+            if W == 512:
+                # the result line's row: the big grid
+                self.time_pair("advect_fast", kf, pf, 20, tag)
+                self.bound("advect_fast", moved,
+                           OPS_PER_CELL["advect_fast"] * W * H * D)
+            else:
+                print(f"   advect_fast    {tag}: kernel "
+                      f"{self.event_ms(kf, 20):.4f} ms, plain "
+                      f"{self.event_ms(pf, 5):.4f} ms per call", flush=True)
+                self.bound("advect_fast", moved,
+                           OPS_PER_CELL["advect_fast"] * W * H * D,
+                           record=False)
+            dev = measure_body(kf, 10, "cuda") * 1e3
+            nbytes = sum(t.numel() * t.element_size() for t in moved)
+            print(f"   advect_fast    {tag}: device (graph replay) "
+                  f"{dev:.4f} ms, {nbytes / dev / 1e9:.3f} TB/s, "
+                  f"{100 * nbytes / HBM_BYTES_PER_S / dev / 1e-3:.2f} % of "
+                  f"the bound", flush=True)
+            del keep, vel, saves, views, want, moved
+            torch.cuda.empty_cache()
+
     def compat_window(self):
         """Compat with advect_window=1 through the entry point: the parity
         gate, the gathers' counts, bitwise equal to the window-0 run."""
@@ -1365,7 +1445,7 @@ class Smoke:
         base = SimParams(mode="fast", div_stats=False, step_stats=False)
         wt = WindTunnel(base.replace(advect_window=1), device="cuda")
         self.run_path(wt, 100, "fast window", rbgs_solve=3, project_empty=2,
-                      trilinear_gather=3, pad_bounds=1, advect_compat=1)
+                      advect_fast=1, pad_bounds=1, advect_compat=1)
         self.check_state(wt, "fast window 128x64x64")
         wt0 = WindTunnel(base, device="cuda")
         wt0.simulate(100)
@@ -2387,6 +2467,8 @@ PHASES = [
      "variant_kernels"),
     ("advect_compat", "kernels vs plain: compat advection in one launch "
      "(K19)", "advect_compat"),
+    ("advect_fast", "kernels vs plain: fast's velocity in one launch (K20)",
+     "advect_fast"),
     ("compat_window", "compat with advect_window=1, 100 steps",
      "compat_window"),
     ("fast_window", "fast with advect_window=1, 100 steps", "fast_window"),

@@ -55,16 +55,6 @@ namespace {
 constexpr int kRows = 4;   // interior rows a block, one warp each
 constexpr int kP = 4;      // x positions a lane carries in a chunk
 
-__device__ __forceinline__ float lerp_rn(float lo, float hi, float s) {
-  return __fadd_rn(__fmul_rn(lo, __fsub_rn(1.0f, s)), __fmul_rn(hi, s));
-}
-
-// clamp(c - scale*v, 0.5, hi): the product, the difference, then the clamp
-__device__ __forceinline__ float back(float c, float scale, float v,
-                                      float hi) {
-  return fminf(fmaxf(__fsub_rn(c, __fmul_rn(scale, v)), 0.5f), hi);
-}
-
 // a ghost-face cell: sign*u, times keep there
 template <bool kMasked>
 __device__ __forceinline__ float face(const float* keep, long i, float sign,
@@ -122,9 +112,9 @@ __global__ void __launch_bounds__(32 * kRows)
 #pragma unroll
     for (int j = 0; j < kP; ++j) {
       const int x = x0 + 32 * j;
-      const float xb = back(static_cast<float>(x), cx, vu[j], hx);
-      const float yb = back(fy, cy, vv[j], hy);
-      const float zb = back(fz, cz, vw[j], hz);
+      const float xb = fst::back(static_cast<float>(x), cx, vu[j], hx);
+      const float yb = fst::back(fy, cy, vv[j], hy);
+      const float zb = fst::back(fz, cz, vw[j], hz);
       const float i0 = floorf(xb), j0 = floorf(yb), k0 = floorf(zb);
       const float tx = __fsub_rn(xb, i0);
       const float ty = __fsub_rn(yb, j0);
@@ -135,13 +125,13 @@ __global__ void __launch_bounds__(32 * kRows)
       const float* c = prev + base;
       float r = 0.0f;
       if (x <= W) {
-        const float c00 = lerp_rn(c[0], c[1], tx);
-        const float c01 = lerp_rn(c[pz], c[pz + 1], tx);
-        const float c10 = lerp_rn(c[py], c[py + 1], tx);
-        const float c11 = lerp_rn(c[pz + py], c[pz + py + 1], tx);
-        const float c0 = lerp_rn(c00, c10, ty);
-        const float c1 = lerp_rn(c01, c11, ty);
-        r = lerp_rn(c0, c1, tz);
+        const float c00 = fst::lerp_rn(c[0], c[1], tx);
+        const float c01 = fst::lerp_rn(c[pz], c[pz + 1], tx);
+        const float c10 = fst::lerp_rn(c[py], c[py + 1], tx);
+        const float c11 = fst::lerp_rn(c[pz + py], c[pz + py + 1], tx);
+        const float c0 = fst::lerp_rn(c00, c10, ty);
+        const float c1 = fst::lerp_rn(c01, c11, ty);
+        r = fst::lerp_rn(c0, c1, tz);
       }
       s[j] = kMasked ? __fmul_rn(r, f[j]) : r;
     }

@@ -243,6 +243,24 @@ __device__ __forceinline__ void grad_faces_masked_cell(
   write_faces(vz, i, sy, sz, z, y, x, D, H, W, uz, neg_mask, 2);
 }
 
+// ---- Advection's per-cell arithmetic, shared by the trilinear gather
+// (trilinear.cu), the whole compat advect (advect_compat.cu) and fast's
+// velocity samples (advect_fast.cu), so that each matches the plain torch
+// expressions in the same order.
+
+// lo*(1-s) + hi*s, each product and the sum rounded on its own: one lerp of
+// ops/advect.py::_lerp8
+__device__ __forceinline__ float lerp_rn(float lo, float hi, float s) {
+  return __fadd_rn(__fmul_rn(lo, __fsub_rn(1.0f, s)), __fmul_rn(hi, s));
+}
+
+// clamp(c - scale*v, 0.5, hi): one axis of ops/advect.py::backtrace, the
+// product, the difference, then the clamp as torch.clamp computes it
+__device__ __forceinline__ float back(float c, float scale, float v,
+                                      float hi) {
+  return fminf(fmaxf(__fsub_rn(c, __fmul_rn(scale, v)), 0.5f), hi);
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 inline unsigned cdiv(long n, long d) { return static_cast<unsigned>((n + d - 1) / d); }

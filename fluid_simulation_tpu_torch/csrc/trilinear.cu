@@ -34,10 +34,6 @@
 
 namespace {
 
-__device__ __forceinline__ float lerp_rn(float lo, float hi, float s) {
-  return __fadd_rn(__fmul_rn(lo, __fsub_rn(1.0f, s)), __fmul_rn(hi, s));
-}
-
 __global__ void trilinear_gather_kernel(const float* __restrict__ prev,
                                         const float* __restrict__ xb,
                                         const float* __restrict__ yb,
@@ -62,13 +58,13 @@ __global__ void trilinear_gather_kernel(const float* __restrict__ prev,
   base = base < 0 ? 0 : (base > last ? last : base);
   const float* c = prev + base;
 
-  const float c00 = lerp_rn(c[0], c[1], sx);
-  const float c01 = lerp_rn(c[pz], c[pz + 1], sx);
-  const float c10 = lerp_rn(c[py], c[py + 1], sx);
-  const float c11 = lerp_rn(c[pz + py], c[pz + py + 1], sx);
-  const float c0 = lerp_rn(c00, c10, sy);
-  const float c1 = lerp_rn(c01, c11, sy);
-  out[idx] = lerp_rn(c0, c1, sz);
+  const float c00 = fst::lerp_rn(c[0], c[1], sx);
+  const float c01 = fst::lerp_rn(c[pz], c[pz + 1], sx);
+  const float c10 = fst::lerp_rn(c[py], c[py + 1], sx);
+  const float c11 = fst::lerp_rn(c[pz + py], c[pz + py + 1], sx);
+  const float c0 = fst::lerp_rn(c00, c10, sy);
+  const float c1 = fst::lerp_rn(c01, c11, sy);
+  out[idx] = fst::lerp_rn(c0, c1, sz);
 }
 
 }  // namespace

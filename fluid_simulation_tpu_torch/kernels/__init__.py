@@ -22,10 +22,14 @@ show which kernels carried it:
 - ``project_stream_masked``  (kernels/project_stream.py)  one per streamed
   obstacle projection
 - ``trilinear_gather``       (kernels/advect_compat.py)   one per trilinear
-  sample of fast advection's velocity with ``advect_window > 0``
+  sample through ``trilinear_gather_window`` (no route: fast's velocity
+  takes ``advect_fast`` at any window)
 - ``advect_compat``          (kernels/advect_compat.py)   one per whole
   ``ops.advect.advect`` call on the card: compat's four a step, fast's
   density
+- ``advect_fast``            (kernels/advect_fast.py)     one per fast step
+  on the card: its shared velocity backtrace and three samples, at any
+  window
 - ``rbgs_solve3``            (kernels/linsolve.py)        one per fused
   three-field diffusion (no route of the step takes it; the JAX package
   gates it off)
@@ -93,7 +97,7 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0,
             "dma_stream": 0, "transpose": 0, "strided_copy": 0,
             "lerp_pass": 0, "rbgs_solve_mxu": 0, "lerpcost_pass": 0,
-            "step_stats": 0, "advect_compat": 0}
+            "step_stats": 0, "advect_compat": 0, "advect_fast": 0}
 
 
 def reset_launches() -> None:

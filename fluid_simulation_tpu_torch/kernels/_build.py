@@ -54,6 +54,7 @@ SIGNATURES = {
     "fst_keep_edges": (_P, _P, _I, _I, _I, _I, _P),
     "fst_trilinear_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "fst_advect_compat": (_P,) * 7 + (_I, _I, _I, _F, _F, _F, _I, _P),
+    "fst_advect_fast": (_P,) * 7 + (_I, _I, _I, _F, _F, _F, _P),
     "fst_divergence": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "fst_grad_faces": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "fst_divergence_masked": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _F,

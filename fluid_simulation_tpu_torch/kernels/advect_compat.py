@@ -11,8 +11,9 @@ only: the value never depends on it, since a backtrace that leaves the
 window falls back to the exact gather. The card's kernel reads any address,
 so it is exact for every backtrace and takes no window; it fetches the
 corners and lerps them in one launch, which is what
-``trilinear_gather_pallas`` returns. The step samples fast advection's
-velocity through it with a window.
+``trilinear_gather_pallas`` returns. No route of the step takes it: fast's
+velocity samples, which the JAX package takes through it with a window,
+are kernel 20 (``kernels/advect_fast.py``) at any window.
 
 Kernel 19 fuses one ``ops.advect.advect`` call: the JAX package's XLA
 backtrace, the corner fetch and lerp, the solid mask and XLA's setBounds

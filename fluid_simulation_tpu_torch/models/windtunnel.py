@@ -24,9 +24,10 @@ scenes; each wrapper launches on a CUDA tensor and runs its plain version
 on the CPU. With rbgs, big grids stream their solves and projections
 (``_solve_route``); on the card every ``ops.advect.advect`` call, compat's
 four and fast's density, runs whole in one kernel
-(``kernels/advect_compat.py::advect_compat``), whatever the window; fast's
-velocity samples through the trilinear kernel with ``advect_window > 0``,
-and split ignores the window, as in the JAX package. A configuration whose
+(``kernels/advect_compat.py::advect_compat``), and fast's shared velocity
+backtrace and its three samples in another
+(``kernels/advect_fast.py::advect_fast``), whatever the window; split
+ignores the window, as in the JAX package. A configuration whose
 kernels are not ported yet raises ``NotImplementedError`` instead of
 running plain torch. With ``use_pallas=False`` the step is plain torch on
 any device.
@@ -45,8 +46,8 @@ import torch
 
 from fluid_simulation_tpu_torch.config import SimParams
 from fluid_simulation_tpu_torch.kernels import _build, linsolve_stream
-from fluid_simulation_tpu_torch.kernels.advect_compat import (
-    advect_compat, trilinear_gather_window)
+from fluid_simulation_tpu_torch.kernels.advect_compat import advect_compat
+from fluid_simulation_tpu_torch.kernels.advect_fast import advect_fast
 from fluid_simulation_tpu_torch.kernels.advect_split import (
     advect_split, advect_split_plain)
 from fluid_simulation_tpu_torch.kernels.bounds import (
@@ -62,8 +63,7 @@ from fluid_simulation_tpu_torch.kernels.stats import (
     step_stats, step_stats_plain)
 from fluid_simulation_tpu_torch.kernels.vorticity import (
     confinement, confinement_plain)
-from fluid_simulation_tpu_torch.ops.advect import (
-    advect, backtrace, gather, trilinear_gather)
+from fluid_simulation_tpu_torch.ops.advect import advect, backtrace, gather
 from fluid_simulation_tpu_torch.ops.linsolve import (
     as_scalar, diffuse, diffusion_coeffs)
 from fluid_simulation_tpu_torch.ops.project import project
@@ -222,7 +222,9 @@ def simulation_step(state: FluidState, masks: SceneMasks,
     shared velocity backtrace and padding, density's), split 2 paddings.
     On the card with ``use_pallas`` an ``advect`` call is one kernel
     launch in ``fst.gather`` and opens neither of the others: compat then
-    opens no ``fst.backtrace`` or ``fst.bounds``, fast one of each."""
+    opens no ``fst.backtrace`` or ``fst.bounds``. Fast's velocity is one
+    ``fst.backtrace`` around one kernel launch in ``fst.gather``, then its
+    padding: fast opens two ``fst.gather`` a step, one of each other."""
     with span("fst.step"):
         return _step(state, masks, params)
 
@@ -242,33 +244,36 @@ def _step(state: FluidState, masks: SceneMasks,
     with span("fst.project"):
         vx, vy, vz = _project_dispatch(vx, vy, vz, masks, p)
 
-    # the trilinear kernel samples fast's velocity with a window; on the
-    # card each advect call is one kernel launch (the plain path never
-    # takes either). advect's arguments stay positional: the benchmark's
-    # roofline reads the first nine, and wrappers of advect pass *args.
-    sample = (trilinear_gather_window if p.use_pallas and p.advect_window > 0
-              else trilinear_gather)
-    fused = (advect_compat if p.use_pallas and _build.on_card(vx)
-             else None)
+    # on the card each advect call is one kernel launch, and so are fast's
+    # velocity samples, whatever the window (the plain path takes neither).
+    # advect's arguments stay positional (the benchmark's roofline reads the
+    # first nine, and wrappers of advect pass *args), and so do backtrace's
+    # first three.
+    card = p.use_pallas and _build.on_card(vx)
+    fused = advect_compat if card else None
     with span("fst.advect"):
         if p.mode == "compat":
             # sequential component advection (simulation.cpp:125-127)
             vx2 = advect(1, pvx, vx, vy, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, sample, fused)
+                         p.empty_scene, fused)
             vy2 = advect(2, pvy, vx2, vy, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, sample, fused)
+                         p.empty_scene, fused)
             vz2 = advect(3, pvz, vx2, vy2, vz, masks, p.dt, p.wall_mode,
-                         p.empty_scene, sample, fused)
+                         p.empty_scene, fused)
             vx, vy, vz = vx2, vy2, vz2
         elif p.mode == "fast":
             # one shared backtrace through the projected field, three
-            # gathers
-            xb, yb, zb = backtrace(
-                vx[1:-1, 1:-1, 1:-1], vy[1:-1, 1:-1, 1:-1],
-                vz[1:-1, 1:-1, 1:-1], p.dt, p.width, p.height, p.depth,
-                vx.dtype)
-            smp = torch.stack([gather(prev, xb, yb, zb, sample)
-                               for prev in (pvx, pvy, pvz)])
+            # samples of the saves along it: on the card one launch
+            inner = (slice(1, -1),) * 3
+            args = (vx[inner], vy[inner], vz[inner], p.dt, p.width,
+                    p.height, p.depth, vx.dtype)
+            saves = (pvx, pvy, pvz)
+            if card:
+                smp = backtrace(*args, prevs=saves, fused=advect_fast)
+            else:
+                xb, yb, zb = backtrace(*args)
+                smp = torch.stack([gather(prev, xb, yb, zb)
+                                   for prev in saves])
             vx, vy, vz = _pad_bounds_tail(smp, (1, 2, 3), masks, p)
         elif p.mode == "split":
             # the three components share one pass pipeline (one coordinate
@@ -293,7 +298,7 @@ def _step(state: FluidState, masks: SceneMasks,
                                      (0,), masks, p)
         else:
             dens = advect(0, buffer, vx, vy, vz, masks, p.dt, p.wall_mode,
-                          p.empty_scene, sample, fused)
+                          p.empty_scene, fused)
 
     with span("fst.stats"):
         on = dict(divergence_on=p.div_stats, density_on=p.step_stats)

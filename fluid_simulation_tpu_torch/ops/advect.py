@@ -13,19 +13,20 @@ Mirrors ``Simulation::advect`` (simulation.cpp:367-424):
 - solid cells forced to zero, then ``setBounds(b)``.
 
 The eight corners are read with one direct index gather per corner offset.
-``advect`` and ``gather`` take the sampler as an argument: this module's
-``trilinear_gather`` by default, or a wrapper of the same signature that
-the step chooses (``kernels.advect_compat.trilinear_gather_window``), which
-gives the same values. ``advect`` also takes ``fused``, a callable of its
-first nine arguments that does the whole call and gives the same values
-(the step's one-launch kernel, ``kernels.advect_compat.advect_compat``).
+``advect`` takes ``fused``, a callable of its first nine arguments that
+does the whole call and gives the same values (the step's one-launch
+kernel on the card, ``kernels.advect_compat.advect_compat``); ``backtrace``
+takes fast's three saves and a ``fused`` sampler of them that gives what
+``gather`` gives for each (``kernels.advect_fast.advect_fast``).
 
 Spans (``utils/profiling.span``): ``backtrace`` runs in
 ``fst.backtrace``, ``gather`` runs each sample in ``fst.gather``;
 ``advect`` runs its ``set_bounds`` in ``fst.bounds``, and a ``fused`` call
-whole in ``fst.gather``, opening neither of the others. A plain compat
-step opens four of each; a fast step two backtraces (the shared one of the
-velocity and density's) and four gathers.
+whole in ``fst.gather``, opening neither of the others; a ``fused``
+``backtrace`` runs its call in ``fst.gather`` inside its own
+``fst.backtrace``. A plain compat step opens four of each; a plain fast
+step two backtraces (the shared one of the velocity and density's) and
+four gathers.
 """
 
 from __future__ import annotations
@@ -77,12 +78,11 @@ def trilinear_gather(prev: torch.Tensor, xb, yb, zb,
     return _lerp8(*corners, sx, sy, sz)
 
 
-def gather(prev: torch.Tensor, xb, yb, zb,
-           sample=trilinear_gather) -> torch.Tensor:
-    """One trilinear sample of compat or fast advection, ``sample(prev,
-    xb, yb, zb)``, in the span ``fst.gather``."""
+def gather(prev: torch.Tensor, xb, yb, zb) -> torch.Tensor:
+    """One trilinear sample of compat or fast advection,
+    ``trilinear_gather(prev, xb, yb, zb)``, in the span ``fst.gather``."""
     with span("fst.gather"):
-        return sample(prev, xb, yb, zb)
+        return trilinear_gather(prev, xb, yb, zb)
 
 
 def backtrace_scales(dt: float, W: int, H: int, D: int):
@@ -93,10 +93,21 @@ def backtrace_scales(dt: float, W: int, H: int, D: int):
     return dt * np.float32(W), dt * np.float32(H), dt * np.float32(D)
 
 
-def backtrace(vx_i, vy_i, vz_i, dt: float, W: int, H: int, D: int, dtype):
+def backtrace(vx_i, vy_i, vz_i, dt: float, W: int, H: int, D: int, dtype,
+              *, prevs=None, fused=None):
     """Backtraced coordinates of every interior cell, clamped like the
-    reference (simulation.cpp:384-390), in the span ``fst.backtrace``."""
+    reference (simulation.cpp:384-390), in the span ``fst.backtrace``.
+    With ``prevs`` (fast's three padded saves) and ``fused``, a callable
+    that samples each of them along this backtrace in one call
+    (``fused(vx_i, vy_i, vz_i, prevs, dt)``: the step's one-launch kernel,
+    ``kernels.advect_fast.advect_fast``), it returns those ``(3, D, H, W)``
+    samples instead, the call in ``fst.gather``."""
+    if (prevs is None) != (fused is None):
+        raise ValueError("backtrace: prevs and fused go together")
     with span("fst.backtrace"):
+        if fused is not None:
+            with span("fst.gather"):
+                return fused(vx_i, vy_i, vz_i, prevs, dt)
         dev = vx_i.device
         xi = torch.arange(1, W + 1, dtype=dtype, device=dev).reshape(1, 1, W)
         yi = torch.arange(1, H + 1, dtype=dtype, device=dev).reshape(1, H, 1)
@@ -122,15 +133,13 @@ def advect(
     dt: float,
     wall_mode: str = "reference",
     empty_scene: bool = False,
-    sample=trilinear_gather,
     fused=None,
 ) -> torch.Tensor:
     """Advect ``prev`` through the velocity field; returns a new padded
     field. For ``b in (1, 2, 3)`` component ``b`` of the backtrace velocity
     is read from ``prev`` (simulation.cpp:380-382); pass the current
-    vx/vy/vz. ``sample`` is the trilinear sampler (``gather``). ``fused``,
-    when given, does the whole call from the first nine arguments, in
-    ``fst.gather``: the call is its trilinear sample."""
+    vx/vy/vz. ``fused``, when given, does the whole call from the first
+    nine arguments, in ``fst.gather``: the call is its trilinear sample."""
     if fused is not None:
         with span("fst.gather"):
             return fused(b, prev, vx, vy, vz, masks, dt, wall_mode,
@@ -143,7 +152,7 @@ def advect(
     vz_i = (prev if b == 3 else vz)[1:-1, 1:-1, 1:-1]
 
     xb, yb, zb = backtrace(vx_i, vy_i, vz_i, dt, W, H, D, prev.dtype)
-    sampled = gather(prev, xb, yb, zb, sample)
+    sampled = gather(prev, xb, yb, zb)
     new_i = sampled if empty_scene else sampled * masks.fluid_i
     out = torch.zeros_like(prev)
     out[1:-1, 1:-1, 1:-1] = new_i

@@ -8,9 +8,9 @@ share, device time by kernel and by phase of the step, from
 profiles the cells on one CUDA device (split and compat at 128x64x64, split
 at 128x64x64 with the bench's sphere and with no-slip walls and vorticity,
 the split step on the plain torch path, fast at 128x64x64, compat and fast
-there with ``advect_window=1`` (the trilinear kernel), and the bench's big
-grids in split mode, 256x128x128, 256^3 and 512x256x256, each empty and
-with its sphere), prints
+there with ``advect_window=1`` (the same kernels as at 0), and the bench's
+big grids in split mode, 256x128x128, 256^3 and 512x256x256, each empty
+and with its sphere), prints
 one summary line, the top device operations and the phases of the step
 per cell, and writes the numbers as JSON to ``--out``. ``--cells`` keeps
 only the cells with those labels; ``--wall-only`` times the host wall per

@@ -152,3 +152,43 @@ def test_advect_compat_chain_bitwise_to_plain(dhw, scene):
                                     "reference", empty)))
     for a, b in zip(*outs):
         assert _same_bits(a, b)
+
+
+# (D, H, W) of K20's cases: one-cell axes, a ragged 37x11x9 and x extents
+# that are no multiple of 32 or 128 (W 37, 130, 600), the 128x64x64 tunnel
+# and the 512x256x256 one
+K20_SHAPES = [(1, 1, 1), (9, 11, 37), (5, 3, 130), (3, 2, 600),
+              (64, 64, 128), (256, 256, 512)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dhw", K20_SHAPES)
+@pytest.mark.parametrize("scene", ["empty", "solids"])
+@pytest.mark.parametrize("reach", ["clamp", "near"])
+def test_advect_fast_bitwise_to_plain(dhw, scene, reach):
+    """K20 equals ``advect_fast_plain`` bit for bit (a zero's sign too),
+    one launch a call, the velocities read in place from
+    interior views of padded fields as the step passes them; the saves are
+    zero in solids, as a run's are (the 128x64x64 sphere: the flagship's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from fluid_simulation_tpu_torch.kernels import LAUNCHES
+    from fluid_simulation_tpu_torch.kernels.advect_fast import (
+        advect_fast, advect_fast_plain)
+    vel, dens, m, dt = _k20_case(dhw, scene, reach)
+    saves = [f * m.keep_scalar for f in (vel[0] * 0.9, vel[1] * 0.9, dens)]
+    views = [v[1:-1, 1:-1, 1:-1] for v in vel]
+    before = LAUNCHES["advect_fast"]
+    got = advect_fast(*views, saves, dt)
+    assert LAUNCHES["advect_fast"] == before + 1
+    assert _same_bits(got, advect_fast_plain(*views, saves, dt))
+
+
+def _k20_case(dhw, scene, reach):
+    """``_k19_case``, with the flagship sphere at 128x64x64."""
+    if dhw != (64, 64, 128) or scene == "empty":
+        return _k19_case(dhw, scene, reach, seed=20)
+    from fluid_simulation_tpu_torch.scene.masks import build_masks
+    from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
+    vel, dens, _, dt = _k19_case(dhw, "empty", reach, seed=20)
+    return vel, dens, build_masks(flagship_sphere(), device="cuda"), dt

@@ -8,8 +8,9 @@ is swapped for a stub that checks what the real launcher would be given
 result. The production steps then run through the real wrappers: the
 empty split and compat steps, obstacle scenes and no-slip walls with
 vorticity, compat and fast advection with and without a window (each
-``ops.advect.advect`` call one K19 launch, with the benchmark's entry
-points unnested and the spans the card opens), the step's statistics
+``ops.advect.advect`` call one K19 launch, fast's velocity one K20 launch,
+with the benchmark's entry points unnested and the spans the card opens),
+the step's statistics
 (one launch a step, no plain reduction, no host-to-device tensor), and
 the launch counters must show which kernels ran, per step. Unported
 configurations must raise on the CUDA branch.
@@ -24,7 +25,8 @@ import torch.nn.functional as F
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
-    LAUNCHES, _build, advect_compat as k9, advect_split as k3,
+    LAUNCHES, _build, advect_compat as k9, advect_fast as k20,
+    advect_split as k3,
     bounds as k4, dma as k23d, hbm as k23h, lerpcost as k24, linsolve as k1,
     linsolve_blocked as k22c,
     linsolve_cpack as k22b, linsolve_mxu as k23m, linsolve_stream as k11,
@@ -146,6 +148,30 @@ def stub_k19(prev, u, v, w, fluid_i, keep, out, scales, neg_mask):
     o[0, 1:-1, 1:-1] = sz * o[1, 1:-1, 1:-1]
     o[-1, 1:-1, 1:-1] = sz * o[-2, 1:-1, 1:-1]
     out.copy_(o if keep is None else o * keep)
+
+
+def stub_k20(prevs, vel, out, scales):
+    """K20 from its own arguments: the backtrace through the velocity
+    views with the scales it is given, then the gather of each save."""
+    interior = [n - 2 for n in prevs[0].shape]
+    for t in prevs:
+        _operand(t, prevs[0].shape)
+    _operand(out, [3] + interior)
+    _distinct(*prevs, out)
+    strides = ((interior[1] + 2) * (interior[2] + 2), interior[2] + 2, 1)
+    for f in vel:
+        assert f.dtype == torch.float32 and f.stride() == strides
+        assert tuple(f.shape) == tuple(interior)
+    assert len(scales) == 3
+    assert all(type(c) is np.float32 for c in scales), scales
+    coords = []
+    for axis, (f, c, n) in enumerate(zip(vel, scales, interior[::-1])):
+        shape = [1, 1, 1]
+        shape[2 - axis] = n
+        at = torch.arange(1, n + 1, dtype=torch.float32).reshape(shape)
+        hi = float(np.float32(n) + np.float32(0.5))
+        coords.append((at - float(c) * f).clamp(0.5, hi))
+    out.copy_(torch.stack([trilinear_gather(s, *coords) for s in prevs]))
 
 
 def stub_k2(vx, vy, vz, rhs, p, acc, wall_mode):
@@ -397,6 +423,7 @@ def card(monkeypatch):
                             (k1, "_launch3", stub_k5),
                             (k9, "_launch", stub_k9),
                             (k9, "_launch_advect", stub_k19),
+                            (k20, "_launch", stub_k20),
                             (k2, "_launch", stub_k2),
                             (k2, "_launch_masked", stub_k6),
                             (k3, "_launch", stub_k3), (k4, "_launch", stub_k4),
@@ -473,16 +500,16 @@ def _run_two_steps(p, obstacles=None, zero_edges=False):
 
 
 @pytest.mark.parametrize("mode,counts", [
-    ("split", (3, 2, 2, 2, 0)), ("compat", (3, 2, 0, 0, 4)),
-    ("fast", (3, 2, 0, 1, 1))])
+    ("split", (3, 2, 2, 2, 0, 0)), ("compat", (3, 2, 0, 0, 4, 0)),
+    ("fast", (3, 2, 0, 1, 1, 1))])
 def test_production_step_launch_counts(card, mode, counts):
     """Each advect call on the card is one K19 launch: compat's four,
-    fast's density."""
+    fast's density; fast's velocity samples are one K20 launch."""
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode)
     per_step = _run_two_steps(p)
     assert per_step == _step_counts(**dict(zip(
         ("rbgs_solve", "project_empty", "advect_split", "pad_bounds",
-         "advect_compat"), counts)))
+         "advect_compat", "advect_fast"), counts)))
 
 
 SPHERE = "sphere"
@@ -494,7 +521,8 @@ SPHERE = "sphere"
     ("compat", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2,
                                 advect_compat=4)),
     ("fast", SPHERE, {}, dict(rbgs_solve_keep=3, project_masked=2,
-                              pad_bounds_masked=1, advect_compat=1)),
+                              pad_bounds_masked=1, advect_compat=1,
+                              advect_fast=1)),
     ("split", None, dict(wall_mode="noslip", vorticity=5.0),
      dict(rbgs_solve=3, project_empty=2, advect_split=2, pad_bounds=2,
           confinement=1)),
@@ -574,7 +602,7 @@ def test_streamed_compat_step_samples_plain(card, monkeypatch, scene):
     advect = wtm.advect
 
     def recording(*args):
-        calls.append((len(args), args[-2], args[-1]))
+        calls.append((len(args), args[-1]))
         return advect(*args)
     monkeypatch.setattr(wtm, "advect", recording)
     p = SimParams(width=W, height=H, depth=D, acc=5)
@@ -585,8 +613,7 @@ def test_streamed_compat_step_samples_plain(card, monkeypatch, scene):
     assert _run_two_steps(p, obs, zero_edges=True) == _step_counts(
         advect_compat=4, **want)
     # two steps of the kernel branch, then two of the plain reference
-    assert calls == ([(11, trilinear_gather, k9.advect_compat)] * 8
-                     + [(11, trilinear_gather, None)] * 8)
+    assert calls == [(10, k9.advect_compat)] * 8 + [(10, None)] * 8
 
 
 def test_plain_reference_run_launches_nothing(card):
@@ -617,21 +644,22 @@ def test_unported_config_raises_on_card(card, change):
     ("compat", None, dict(rbgs_solve=3, project_empty=2, advect_compat=4)),
     ("compat", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
                             advect_compat=4)),
-    ("fast", None, dict(rbgs_solve=3, project_empty=2, trilinear_gather=3,
-                        pad_bounds=1, advect_compat=1)),
+    ("fast", None, dict(rbgs_solve=3, project_empty=2, pad_bounds=1,
+                        advect_compat=1, advect_fast=1)),
     ("fast", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
-                          trilinear_gather=3, pad_bounds_masked=1,
-                          advect_compat=1)),
+                          pad_bounds_masked=1, advect_compat=1,
+                          advect_fast=1)),
     ("split", None, dict(rbgs_solve=3, project_empty=2, advect_split=2,
                          pad_bounds=2)),
     ("split", SPHERE, dict(rbgs_solve_keep=3, project_masked=2,
                            advect_split=2, pad_bounds_masked=2)),
 ])
 def test_window_step_launch_counts(card, mode, scene, nonzero):
-    """advect_window > 0 runs on the card: fast's three velocity gathers
-    sample through the trilinear kernel; every advect call, compat's four
-    and fast's density, is one K19 launch whatever the window; split
-    ignores the window and keeps its counts. Each equals the plain step."""
+    """advect_window > 0 runs on the card: fast's shared backtrace and
+    three velocity samples are one K20 launch, and every advect call,
+    compat's four and fast's density, one K19 launch, whatever the window;
+    the trilinear kernel has no route; split ignores the window and keeps
+    its counts. Each equals the plain step."""
     p = SimParams(width=W, height=H, depth=D, acc=4, mode=mode,
                   advect_window=1)
     obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
@@ -641,17 +669,30 @@ def test_window_step_launch_counts(card, mode, scene, nonzero):
 @pytest.mark.parametrize("mode", ["compat", "fast"])
 @pytest.mark.parametrize("window", [0, 1])
 def test_plain_gathers_are_counted(card, mode, window):
-    """Each of fast's three velocity samples a step is a launch of the
-    trilinear kernel with a window, and a plain gather, which launches
-    nothing, at window 0; each advect call (compat 4 a step, fast 1) is
-    one K19 launch at either window. All equal the plain step
-    (``_run_two_steps``)."""
+    """No sample of the step launches the trilinear kernel at either
+    window: fast's three velocity samples are one K20 launch a step, and
+    each advect call (compat 4 a step, fast 1) one K19 launch. All equal
+    the plain step (``_run_two_steps``)."""
     p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode,
                   advect_window=window)
     _run_two_steps(p, add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2))
-    velocity = 6 if mode == "fast" and window else 0
-    assert LAUNCHES["trilinear_gather"] == velocity
+    assert LAUNCHES["trilinear_gather"] == 0
+    assert LAUNCHES["advect_fast"] == (2 if mode == "fast" else 0)
     assert LAUNCHES["advect_compat"] == (8 if mode == "compat" else 2)
+
+
+@pytest.mark.parametrize("window", [0, 2])
+@pytest.mark.parametrize("scene", [None, SPHERE])
+def test_card_fast_step_is_one_k20_and_one_k19_launch(card, window, scene):
+    """A fast step on the card samples its velocity in one K20 launch and
+    advects its density in one K19 launch, at window 0 and 2, never
+    through the trilinear kernel; equal to the plain step."""
+    p = SimParams(width=W, height=H, depth=D, acc=3, mode="fast",
+                  advect_window=window)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    per_step = _run_two_steps(p, obs)
+    assert per_step["advect_fast"] == per_step["advect_compat"] == 1
+    assert per_step["trilinear_gather"] == 0
 
 
 @pytest.mark.parametrize("mode", ["compat", "fast"])
@@ -738,6 +779,65 @@ def test_advect_compat_refuses_bad_operands(card):
     assert set(LAUNCHES.values()) == {0}
 
 
+@pytest.mark.parametrize("dims", [(W, H, D), (37, 11, 9), (5, 1, 2)])
+def test_advect_fast_launcher_arguments(card, monkeypatch, dims):
+    """K20's launcher gets the three saves and the three velocity views
+    themselves (read in place, no copy) and the backtrace's float32
+    scales; the call equals ``advect_fast_plain`` bit for bit, clamped and
+    integer backtraces included."""
+    w, h, d = dims
+    p = SimParams(width=w, height=h, depth=d, dt=0.1)
+    vel = _wild_state(p, seed=w)[:3]
+    saves = [f * 0.5 for f in vel]
+    views = [f[1:-1, 1:-1, 1:-1] for f in vel]
+    seen = []
+
+    def launch(*args):
+        seen.append(args)
+        stub_k20(*args)
+    monkeypatch.setattr(k20, "_launch", launch)
+    got = k20.advect_fast(*views, saves, p.dt)
+    want = k20.advect_fast_plain(*views, saves, p.dt)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert LAUNCHES["advect_fast"] == 1 and len(seen) == 1
+    a_saves, a_vel, out, scales = seen[0]
+    assert [a is b for a, b in zip(a_saves, saves)] == [True] * 3
+    assert [a is b for a, b in zip(a_vel, views)] == [True] * 3
+    assert out is got
+    dt = np.float32(p.dt)
+    assert scales == (dt * np.float32(w), dt * np.float32(h),
+                      dt * np.float32(d))
+
+
+def test_advect_fast_refuses_bad_operands(card):
+    """K20 raises on a save of the wrong shape, dtype or layout, on
+    velocities that are not interior views of padded fields (a contiguous
+    interior has other strides) and on a wrong count of saves; nothing
+    launches."""
+    f = torch.zeros(PAD)
+    views = [torch.zeros(PAD)[1:-1, 1:-1, 1:-1] for _ in range(3)]
+    saves = [f, f.clone(), f.clone()]
+    with pytest.raises(NotImplementedError, match="A11"):
+        k20.advect_fast(*views, [s.bfloat16() for s in saves], 0.05)
+    with pytest.raises(NotImplementedError, match="A11"):
+        k20.advect_fast(*views[:2], views[2].bfloat16(), saves, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        k20.advect_fast(*views, saves[:2] + [
+            torch.zeros(PAD[::-1]).transpose(0, 2)], 0.05)
+    with pytest.raises(ValueError, match="shape"):
+        k20.advect_fast(*views, saves[:2] + [torch.zeros((D, H, W))], 0.05)
+    with pytest.raises(ValueError, match="strides"):
+        k20.advect_fast(*views[:2], views[2].contiguous(), saves, 0.05)
+    with pytest.raises(ValueError, match="strides"):
+        k20.advect_fast(*views[:2], torch.zeros((D + 2, H + 2, W + 3))[
+            1:-1, 1:-1, 1:-2], saves, 0.05)
+    with pytest.raises(ValueError, match="3"):
+        k20.advect_fast(*views, saves[:2], 0.05)
+    with pytest.raises(ValueError, match="go together"):
+        backtrace(*views, 0.05, W, H, D, torch.float32, prevs=saves)
+    assert set(LAUNCHES.values()) == {0}
+
+
 @pytest.mark.parametrize("streamed", [False, True])
 @pytest.mark.parametrize("mode", ["compat", "fast"])
 def test_card_step_advect_entry_points_do_not_nest(card, monkeypatch,
@@ -776,10 +876,10 @@ def test_card_step_advect_entry_points_do_not_nest(card, monkeypatch,
 def test_card_fast_samples_are_one_backtrace_and_three_gathers(
         card, monkeypatch, streamed):
     """``fast_advect_roofline``'s entry points wrapped as a traced run
-    wraps them: a fast step on the card records its shared backtrace and
-    its three velocity gathers, none nested in another, with the bytes the
-    roofline counts; density's advect is one K19 launch, which calls
-    neither."""
+    wraps them: a fast step on the card records one ``backtrace`` call,
+    its shared backtrace and three velocity samples in one K20 launch,
+    with the backtrace's bytes, and no ``gather`` call; density's advect
+    is one K19 launch, which calls neither."""
     from windbench import harness
     from windbench.metrics import fast_advect_roofline as far
     if streamed:
@@ -792,17 +892,17 @@ def test_card_fast_samples_are_one_backtrace_and_three_gathers(
         wt.step()
     assert wtm.backtrace is backtrace and wtm.gather is gather
     name = "fast_advect_roofline"
-    assert calls == [(name, far.backtrace_bytes(D, H, W))] + \
-        [(name, far.gather_bytes(D, H, W))] * 3
-    assert LAUNCHES["advect_compat"] == 1
+    assert calls == [(name, far.backtrace_bytes(D, H, W))]
+    assert LAUNCHES["advect_compat"] == LAUNCHES["advect_fast"] == 1
 
 
 @pytest.mark.parametrize("mode", ["compat", "fast"])
 def test_card_advect_spans(card, mode):
     """On the card each advect call runs whole in ``fst.gather`` and
     opens no span inside it: compat opens no ``fst.backtrace`` and no
-    ``fst.bounds`` (the resident projections pad nothing), fast its shared
-    velocity backtrace and padding only."""
+    ``fst.bounds`` (the resident projections pad nothing); fast its shared
+    velocity backtrace, with K20's launch in ``fst.gather`` inside it, and
+    its padding only: two ``fst.gather`` a step."""
     from torch.profiler import ProfilerActivity, profile
     p = SimParams(width=W, height=H, depth=D, acc=3, mode=mode)
     wt = WindTunnel(p, obstacles=add_sphere(empty_obstacles(W, H, D), 5, 4,
@@ -812,7 +912,9 @@ def test_card_advect_spans(card, mode):
     events = [e for e in prof.events() if e.name.startswith("fst.")]
     gathers = sorted(e.cpu_parent.name for e in events
                      if e.name == "fst.gather")
-    assert gathers == ["fst.advect"] * 3 + ["fst.advect_density"]
+    assert gathers == (["fst.advect"] * 3 + ["fst.advect_density"]
+                       if mode == "compat" else
+                       ["fst.advect_density", "fst.backtrace"])
     assert not [e for e in events if e.cpu_parent is not None
                 and e.cpu_parent.name == "fst.gather"]
     for name in ("fst.backtrace", "fst.bounds"):
@@ -1065,12 +1167,14 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
     out32 = k24.lerpcost_pass(stack, plane, "full")
     out33 = kst.step_stats(vx, vy, vz, g, m)
     out34 = k9.advect_compat(2, g, vx, vy, vz, m, 0.05, "noslip")
+    out35 = k20.advect_fast(*(t[1:-1, 1:-1, 1:-1] for t in (vx, vy, vz)),
+                            (vx, vy, g), 0.05)
     for a, b in zip((vx, vy, vz, g), before):
         assert torch.equal(a, b)
     for t in (out1, *out2, out5, *out6, *out8, out9, out10, out11, out12,
               out13, *out14, out15, out16, *out17, out18, *out19, *out20,
               out21, out22, out23, out24, out25, out26, out27, out28, out29,
-              out30, out31, out32, *out33, out34):
+              out30, out31, out32, *out33, out34, out35):
         assert t.data_ptr() not in {x.data_ptr() for x in (vx, vy, vz, g)}
     # the variants give what their plain versions give
     assert torch.equal(out13, trilinear_gather(g, *coords))
@@ -1518,7 +1622,8 @@ def test_sources_and_sign_mask():
     names = {s.name for s in _build.sources()}
     assert {"rbgs.cu", "project.cu", "advect_split.cu", "pad_bounds.cu",
             "vorticity.cu", "rbgs_stream.cu", "project_stream.cu",
-            "trilinear.cu", "advect_compat.cu", "rbgs_sweep.cu",
+            "trilinear.cu", "advect_compat.cu", "advect_fast.cu",
+            "rbgs_sweep.cu",
             "prestep.cu",
             "rbgs_cpack.cu", "probe.cu", "hbm.cu", "sweepcost.cu", "dma.cu",
             "transpose.cu", "rbgs_mxu.cu", "lerpcost.cu",

@@ -14,7 +14,9 @@ uncontracted NumPy oracle. K4 only moves data, exact signs and 0/1 mask
 products: bitwise. K19's plain version, a whole compat advect, is held
 bitwise to the JAX package's compat advect (its XLA backtrace, gather and
 setBounds, the stages the kernel fuses), as tests/test_torch_ops.py holds
-the composable op. The obstacle forms (K1 keep, K6) and K10 are held to the
+the composable op; K20's, fast's shared backtrace and three velocity
+samples, bitwise to the JAX package's fast sampling (its XLA backtrace,
+three XLA gathers and the stack). The obstacle forms (K1 keep, K6) and K10 are held to the
 same bounds as their empty-scene kernels; each is also bitwise equal to the
 port's composable ops, which the card's plain versions repeat.
 """
@@ -33,10 +35,15 @@ from fluid_simulation_tpu.kernels.project_pallas import (
     pallas_project_empty, pallas_project_masked)
 from fluid_simulation_tpu.kernels.vorticity_pallas import pallas_confinement
 from fluid_simulation_tpu.ops.advect import advect as jax_advect
+from fluid_simulation_tpu.ops.advect import backtrace as jax_backtrace
+from fluid_simulation_tpu.ops.advect import (
+    trilinear_gather as jax_trilinear_gather)
 from fluid_simulation_tpu.scene.masks import build_masks as jax_build_masks
 from fluid_simulation_tpu.scene.primitives import add_sphere, empty_obstacles
 from fluid_simulation_tpu_torch.kernels.advect_compat import (
     advect_compat, advect_compat_plain)
+from fluid_simulation_tpu_torch.kernels.advect_fast import (
+    advect_fast, advect_fast_plain)
 from fluid_simulation_tpu_torch.kernels.advect_split import advect_split_plain
 from fluid_simulation_tpu_torch.kernels.bounds import pad_bounds_plain
 from fluid_simulation_tpu_torch.kernels.linsolve import rbgs_solve_plain
@@ -330,3 +337,32 @@ def test_k19_plain_matches_jax_advect(kind, dims, b, wall_mode):
     got = advect_compat_plain(*args)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert torch.equal(advect_compat(*args), got)
+
+
+# -- fast advection's velocity in one launch (K20) ------------------------
+
+@pytest.mark.parametrize("dims", [(W, H, D), (13, 7, 5), (37, 3, 2)])
+@pytest.mark.parametrize("reach", [12.0, 0.5])
+def test_k20_plain_matches_jax_fast_sampling(dims, reach):
+    """K20's plain version (and its wrapper on CPU tensors, the step's
+    interior views) against the JAX fast step's sampling: its backtrace
+    through the velocity interiors, then each save gathered there and
+    stacked (fluid_simulation_tpu/models/windtunnel.py:339-355). Velocities
+    up to 12 cells' worth clamp at every face; a quarter are zero, so
+    those backtraces land on exact integers."""
+    Wd, Hd, Dd = dims
+    saves = _fields(3, 60 + Wd, _padded(dims))
+    vel = _fields(3, 61 + Wd, _padded(dims))
+    rng = np.random.default_rng(62 + Wd)
+    still = rng.uniform(size=vel[0].shape) < 0.25
+    vel = [np.where(still, 0.0, v * reach).astype(np.float32) for v in vel]
+    inner = (slice(1, -1),) * 3
+    coords = jax_backtrace(*(jnp.asarray(v[inner]) for v in vel), 0.1, Wd,
+                           Hd, Dd, jnp.float32)
+    want = jnp.stack([jax_trilinear_gather(jnp.asarray(f), *coords)
+                      for f in saves])
+    views = [_t(v)[inner] for v in vel]
+    got = advect_fast_plain(*views, [_t(f) for f in saves], 0.1)
+    assert got.shape == (3, Dd, Hd, Wd)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(advect_fast(*views, [_t(f) for f in saves], 0.1), got)
