@@ -32,6 +32,9 @@ from pathlib import Path
 
 import torch
 
+from fluid_simulation_tpu_torch.utils.profiling import (
+    PROCESS_SETUP, timed_span)
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "fst_kernels"
 LIB_NAME = "libfst_kernels.so"
@@ -166,28 +169,54 @@ def build() -> Path:
             name, out = failed[0]
             raise RuntimeError(f"nvcc failed on {name}:\n{out[-4000:]}")
         os.replace(tmp, lib)   # atomic: concurrent builds agree
+        PROCESS_SETUP["built"] = 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
 # C entry point name -> its ctypes function, filled once by library(), so
-# that a launch looks its function up in one dict
+# that a launch looks its function up in one dict. Until an entry's first
+# call the dict holds a wrapper (``_first_call``) that puts the ctypes
+# function in its own place.
 _ENTRY = {}
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call, then cached)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
-        _ENTRY[name] = fn
-    lib.fst_error_string.argtypes = [ctypes.c_int]
-    lib.fst_error_string.restype = ctypes.c_char_p
+    """The loaded kernel library (built on first call, then cached), in the
+    span ``fst.library``: ``fst.library.build`` (the sources' hash, and
+    ``nvcc`` where no library for them exists) and ``fst.library.load``
+    (``ctypes.CDLL`` and the entry points' set-up). Their host seconds, and
+    ``built``, go to ``utils/profiling.PROCESS_SETUP``."""
+    PROCESS_SETUP.setdefault("built", 0)
+    with timed_span("fst.library", PROCESS_SETUP):
+        with timed_span("fst.library.build", PROCESS_SETUP):
+            path = build()
+        with timed_span("fst.library.load", PROCESS_SETUP):
+            lib = ctypes.CDLL(str(path))
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+                _ENTRY[name] = _first_call(name, fn)
+            lib.fst_error_string.argtypes = [ctypes.c_int]
+            lib.fst_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _first_call(name: str, fn):
+    """The entry table's first value for C entry point ``name``: at its
+    first call it puts ``fn`` in ``_ENTRY``, then calls it in the span
+    ``fst.first_launch`` (the launch's lazy module load), its host seconds
+    kept under ``name`` in ``PROCESS_SETUP["fst.first_launch"]``. Every
+    later call finds ``fn`` itself."""
+    def first(*args):
+        _ENTRY[name] = fn
+        with timed_span("fst.first_launch",
+                        PROCESS_SETUP["fst.first_launch"], name):
+            return fn(*args)
+    return first
 
 
 def _entry(name: str):
@@ -215,7 +244,10 @@ def launch(name: str, device: int, *args) -> None:
     at this call (a CUDA graph's capture stream while one captures); raise
     if the launch reported an error. Pointers are plain ints (``ptr``),
     None for a null one. The device guard is entered only when ``device``
-    is not the current device."""
+    is not the current device. The first launch of each entry point
+    is timed as ``fst.first_launch`` (``_first_call``), and the very first
+    also loads the library (``fst.library``); later launches pay for
+    neither."""
     fn = _entry(name)
     C = torch._C
     if device == C._cuda_getDevice():

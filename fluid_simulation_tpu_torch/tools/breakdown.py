@@ -7,12 +7,14 @@ share, device time by kernel and by phase of the step, from
 
 profiles the cells on one CUDA device (split and compat at 128x64x64, split
 at 128x64x64 with the bench's sphere and with no-slip walls and vorticity,
-the split step on the plain torch path, fast at 128x64x64, compat and fast
-there with ``advect_window=1`` (the same kernels as at 0), and the bench's
+the split step on the plain torch path, fast at 128x64x64, and the bench's
 big grids in split mode, 256x128x128, 256^3 and 512x256x256, each empty
-and with its sphere), prints
-one summary line, the top device operations and the phases of the step
-per cell, and writes the numbers as JSON to ``--out``. ``--cells`` keeps
+and with its sphere), prints per cell a set-up table (the tunnel's
+construction and first step under the profiler, by the set-up spans of
+``utils/profiling.py``, with the process's own records after the first
+cell: the kernel library's load and each entry point's first launch, which
+later cells find done), one summary line, the top device operations and
+the phases of the step, and writes the numbers as JSON to ``--out``. ``--cells`` keeps
 only the cells with those labels; ``--wall-only`` times the host wall per
 step and skips the profiler, for repeated runs that compare two trees.
 ``--shards N`` runs the cells (by default split 256^3 and compat 128x64x64)
@@ -40,7 +42,8 @@ from fluid_simulation_tpu_torch.config import SimParams
 from fluid_simulation_tpu_torch.parallel import ShardedWindTunnel
 from fluid_simulation_tpu_torch.scene.primitives import (
     BIG_SPHERES, big_sphere, flagship_sphere)
-from fluid_simulation_tpu_torch.utils.profiling import trace_ctx
+from fluid_simulation_tpu_torch.utils.profiling import (
+    PROCESS_SETUP, trace_ctx)
 
 # runtime calls that block the host on the card, and calls that enqueue
 # device work (``windbench``'s readers count the same)
@@ -189,6 +192,58 @@ def phase_table(host, dev, calls: int) -> Dict[str, Dict[str, float]]:
     return out
 
 
+def setup_profile(make) -> Tuple[object, Dict]:
+    """``make()`` (a tunnel's construction) and the tunnel's first step
+    under the profiler on the card: returns the tunnel and its set-up:
+    ``phases``, ``phase_table``'s rows of the one call (device ms by
+    correlation id); ``setup_s``, the tunnel's own record; ``process``, a
+    copy of the process's record (``PROCESS_SETUP``) but its first
+    launches, whose ``fst.library`` span only the process's first tunnel
+    to step opens; and ``first_launch``, the entry points first called
+    here, by host seconds."""
+    before = set(PROCESS_SETUP["fst.first_launch"])
+    made = []
+
+    def construct():
+        made.append(make())
+        made[0].step()
+    prof = device_profile(construct, 1)
+    wt = made[0]
+    first = {k: v for k, v in PROCESS_SETUP["fst.first_launch"].items()
+             if k not in before}
+    process = {k: v for k, v in PROCESS_SETUP.items()
+               if k != "fst.first_launch"}
+    return wt, dict(phases=prof["phases"], process=process,
+                    first_launch=first,
+                    setup_s=dict(getattr(wt, "setup_s", {})))
+
+
+def print_setup(label: str, setup: Dict) -> None:
+    """The set-up table of one cell (``setup_profile``), in seconds and
+    device ms."""
+    print(f"== {label}: set-up, host s (device ms by the ops each span "
+          f"launched)", flush=True)
+    phases = setup["phases"]
+    for name, sec in setup["setup_s"].items():
+        dev = phases.get(name, {}).get("device_ms", 0.0)
+        print(f"   {name:22s} {sec:9.4f} s {dev:9.4f} device ms", flush=True)
+    proc = setup["process"]
+    if "fst.library" in phases:
+        for name in ("fst.library", "fst.library.build", "fst.library.load"):
+            print(f"   {name:22s} {proc[name]:9.4f} s", flush=True)
+    else:
+        print(f"   fst.library: loaded before this cell, in this process "
+              f"({proc.get('fst.library', 0.0):.4f} s)", flush=True)
+    first = setup["first_launch"]
+    row = phases.get("fst.first_launch", {})
+    print(f"   fst.first_launch       {sum(first.values()):9.4f} s over "
+          f"{len(first)} entry points new to the process, "
+          f"{row.get('device_ms', 0.0):.4f} device ms; built "
+          f"{proc.get('built', 0)}", flush=True)
+    for name, sec in sorted(first.items(), key=lambda r: -r[1])[:5]:
+        print(f"      {name:28s} {sec:9.4f} s", flush=True)
+
+
 def host_ms(wt, steps: int, warmup: int = 5) -> float:
     """Host wall ms per step of ``steps`` calls of ``wt.step()`` after
     ``warmup`` steps, ending in a synchronise."""
@@ -284,9 +339,6 @@ def main(argv=None) -> int:
     todo["split 128x64x64 plain"] = (split.replace(use_pallas=False), None)
     compat, _ = todo["compat 128x64x64"]
     todo["fast 128x64x64"] = (compat.replace(mode="fast"), None)
-    for mode in ("compat", "fast"):
-        todo[f"{mode} 128x64x64 window"] = (
-            compat.replace(mode=mode, advect_window=1), None)
     todo.update(big_cells())
     cells_asked = args.cells
     if args.shards and not cells_asked:
@@ -300,13 +352,15 @@ def main(argv=None) -> int:
     if args.shards:
         todo = shard_cells(todo, args.shards)
     for label, (p, obs) in todo.items():
-        wt = make_tunnel(p, obs, args.shards)
         if args.wall_only:
-            wall = host_ms(wt, args.steps)
+            wall = host_ms(make_tunnel(p, obs, args.shards), args.steps)
             out["cells"][label] = {"wall_ms": wall}
             print(f"== {label}: wall {wall:.4f} ms/step", flush=True)
             continue
+        wt, setup = setup_profile(lambda: make_tunnel(p, obs, args.shards))
+        print_setup(label, setup)
         r = step_breakdown(wt, steps=args.steps)
+        r["setup"] = setup
         out["cells"][label] = r
         print(f"== {label}: wall {r['wall_ms']:.4f} ms/step, device busy "
               f"{r['busy_ms']:.4f} ms/step, idle {100 * r['idle']:.1f} %, "

@@ -244,8 +244,10 @@ def host_split(launch: Launch, n: int = 10_000) -> List[tuple]:
     idx, C = launch.ptrs[0].get_device(), torch._C
     ptrs = [u.data_ptr() for u in launch.ptrs]
     stream = C._cuda_getCurrentRawStream(idx)
-    _build.library()
-    noop, entry = _build._ENTRY[launch.noop], _build._ENTRY[launch.entry]
+    # the ctypes functions themselves, not the entry table's first-call
+    # wrappers
+    lib = _build.library()
+    noop, entry = getattr(lib, launch.noop), getattr(lib, launch.entry)
     parts = [
         ("checks", launch.checks),
         ("output allocation", launch.alloc),

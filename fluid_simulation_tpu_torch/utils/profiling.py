@@ -9,9 +9,20 @@ each step, and inside it ``fst.inlets``, ``fst.diffuse``, ``fst.project``
 pads or sets the bounds, ``fst.backtrace`` around each backtrace of compat
 and fast (``ops/advect.backtrace``; compat 4 a step, fast 2) and
 ``fst.gather`` around each trilinear sample of compat and fast
-(``ops/advect.gather``); ``WindTunnel.__init__`` opens
-``fst.setup`` around ``fst.setup.masks`` and ``fst.setup.state``. The
-operator tool that reads them is ``tools/breakdown.py``.
+(``ops/advect.gather``). The operator tool that reads them is
+``tools/breakdown.py``.
+
+Set-up opens these once, each timed with ``timed_span``:
+
+- a tunnel's, kept in its ``WindTunnel.setup_s``: ``fst.setup`` around
+  ``fst.setup.context`` (on the card only: the device's CUDA context),
+  ``fst.setup.masks`` and ``fst.setup.state`` in ``WindTunnel.__init__``;
+  ``fst.first_step`` around the tunnel's first step (``step`` or the first
+  step of ``simulate``), which holds the step's ``fst.step``;
+- the process's, kept in ``PROCESS_SETUP``: ``fst.library`` around
+  ``fst.library.build`` and ``fst.library.load`` (``kernels/_build.library``)
+  and one ``fst.first_launch`` around the first call of each C entry point
+  (``kernels/_build``'s entry table), seconds by entry point.
 """
 
 from __future__ import annotations
@@ -26,6 +37,12 @@ from torch._C._profiler import _RecordFunctionFast
 
 _OFF = contextlib.nullcontext()
 
+# The process's set-up, written once by ``kernels/_build.py``: host seconds
+# of ``fst.library``, ``fst.library.build`` and ``fst.library.load``,
+# ``built`` (1 where this process compiled the kernel library, else 0), and
+# under ``fst.first_launch`` each C entry point's first call, in seconds.
+PROCESS_SETUP: Dict = {"fst.first_launch": {}}
+
 
 def span(name: str):
     """A host-only span ``name`` in the running ``torch.profiler`` trace,
@@ -38,13 +55,14 @@ def span(name: str):
 
 
 @contextlib.contextmanager
-def timed_span(name: str, into: Dict[str, float]):
-    """``span(name)``, its host seconds always kept in ``into[name]``: for
-    work that runs once, such as a tunnel's set-up."""
+def timed_span(name: str, into: Dict[str, float], key: Optional[str] = None):
+    """``span(name)``, its host seconds always kept in ``into[key]``
+    (``key`` defaults to ``name``): for work that runs once, such as a
+    tunnel's set-up."""
     t0 = time.perf_counter()
     with span(name):
         yield
-    into[name] = time.perf_counter() - t0
+    into[name if key is None else key] = time.perf_counter() - t0
 
 
 @contextlib.contextmanager

@@ -192,3 +192,92 @@ def _k20_case(dhw, scene, reach):
     from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
     vel, dens, _, dt = _k19_case(dhw, "empty", reach, seed=20)
     return vel, dens, build_masks(flagship_sphere(), device="cuda"), dt
+
+
+# A fresh process on the card: one tunnel built outside any profiler (its
+# context span holds the context), then, under ``trace_ctx``, a second
+# tunnel's construction and the process's first step, every C entry point
+# called in it recorded by name.
+_FIRST_STEP = r"""
+import json, sys
+import torch
+from fluid_simulation_tpu_torch import SimParams, WindTunnel
+from fluid_simulation_tpu_torch.kernels import _build
+from fluid_simulation_tpu_torch.scene.primitives import flagship_sphere
+from fluid_simulation_tpu_torch.utils import profiling
+
+launched = []
+for fname in ("launch", "call"):
+    def record(name, *args, _real=getattr(_build, fname)):
+        launched.append(name)
+        return _real(name, *args)
+    setattr(_build, fname, record)
+a = WindTunnel(SimParams(), device="cuda")
+with profiling.trace_ctx(sys.argv[1]):
+    b = WindTunnel(SimParams(), obstacles=flagship_sphere(), device="cuda")
+    b.step()
+print(json.dumps({"a": a.setup_s, "b": b.setup_s, "launched": launched,
+                  "process": profiling.PROCESS_SETUP}))
+"""
+
+
+@pytest.mark.card
+def test_first_step_records_each_entry_once(tmp_path):
+    """In a fresh process at 128x64x64 (compat, the flagship sphere): the
+    context span holds the context, and a tunnel's masks, once torch has
+    loaded its kernels for them, take under a tenth of it (the process's
+    first masks also hold those loads, as its first step holds the step's:
+    0.19 s of a first 128x64x64 tunnel's masks on an H100); the first step launches each C entry point once under
+    ``fst.first_launch``, kept once by name; the library's load and the
+    first launches fit in the first step; and the trace shows the set-up
+    spans nested as ``utils/profiling.py`` says, on the clock of the
+    device's rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    trace = tmp_path / "first_step.json"
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _FIRST_STEP, str(trace)],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    a, b, proc = rec["a"], rec["b"], rec["process"]
+    assert a["fst.setup.context"] > 0 and "fst.setup.context" in b
+    assert b["fst.setup.masks"] < a["fst.setup.context"] / 10, (a, b)
+    assert b["fst.setup.context"] < a["fst.setup.context"] / 10, (a, b)
+    assert "fst.first_step" in b and "fst.first_step" not in a
+    first = proc["fst.first_launch"]
+    assert set(first) == set(rec["launched"]) and first
+    assert proc["fst.library"] + sum(first.values()) <= b["fst.first_step"]
+
+    events = json.loads(trace.read_text())["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X" and e["name"].startswith("fst."):
+            spans.setdefault(e["name"], []).append((e["ts"],
+                                                    e["ts"] + e["dur"]))
+    kernels = [e["ts"] for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+    def inside(inner, outer):
+        return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+    (setup,), (step1,), (lib,) = (spans["fst.setup"],
+                                  spans["fst.first_step"],
+                                  spans["fst.library"])
+    assert inside(spans["fst.setup.context"][0], setup)
+    assert inside(spans["fst.library.build"][0], lib)
+    assert inside(spans["fst.library.load"][0], lib)
+    assert inside(lib, step1) and inside(spans["fst.step"][0], step1)
+    launches = spans["fst.first_launch"]
+    assert len(launches) == len(first)
+    for span in launches:
+        assert inside(span, step1) and not (span[0] < lib[1]
+                                            and lib[0] < span[1])
+    # the device's rows on the same clock: the step's kernels start inside
+    # it, after its first launch began
+    assert any(min(launches)[0] <= t <= step1[1] for t in kernels)

@@ -13,8 +13,8 @@ from fluid_simulation_tpu_torch.parallel import ShardedWindTunnel
 from fluid_simulation_tpu_torch.scene.primitives import (
     BIG_SPHERES, big_sphere)
 from fluid_simulation_tpu_torch.tools.breakdown import (
-    busy_us, cells, host_ms, main, make_tunnel, phase_table, shard_cells,
-    step_breakdown)
+    busy_us, cells, host_ms, main, make_tunnel, phase_table, print_setup,
+    shard_cells, step_breakdown)
 from fluid_simulation_tpu_torch.utils.profiling import trace_ctx
 
 torch.set_num_threads(1)
@@ -142,6 +142,41 @@ def test_phase_table_gives_each_call_to_the_innermost_span():
     assert got["(not matched)"]["device_ms"] == pytest.approx(1 * ms)
     assert sum(r["device_ms"] for r in got.values()) == pytest.approx(
         sum(e - s for _, s, e, _ in dev) * ms)
+
+
+def test_setup_table_names_the_process_records(capsys):
+    """The set-up table prints the tunnel's record with each span's device
+    ms, the library's load where this cell opened it (else that an earlier
+    cell in the process did), and the entry points first launched here."""
+    process = {"fst.library": 0.25, "fst.library.build": 0.125,
+               "fst.library.load": 0.0625, "built": 0}
+    setup = dict(setup_s={"fst.setup.context": 0.75, "fst.first_step": 1.5},
+                 process=process,
+                 first_launch={"fst_b": 0.03125, "fst_a": 0.5},
+                 phases={"fst.first_step": {"device_ms": 2.0},
+                         "fst.library": {"device_ms": 0.0},
+                         "fst.first_launch": {"device_ms": 3.0}})
+    print_setup("cell", setup)
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].split() == ["fst.setup.context", "0.7500", "s", "0.0000",
+                              "device", "ms"]
+    assert out[2].split()[:2] == ["fst.first_step", "1.5000"]
+    assert out[2].split()[3] == "2.0000"
+    assert [r.split()[:2] for r in out[3:6]] == [
+        ["fst.library", "0.2500"], ["fst.library.build", "0.1250"],
+        ["fst.library.load", "0.0625"]]
+    assert out[6].split()[:5] == ["fst.first_launch", "0.5312", "s", "over",
+                                  "2"]
+    assert "3.0000 device ms" in out[6]
+    assert [r.split()[0] for r in out[7:]] == ["fst_a", "fst_b"]
+    del setup["phases"]["fst.library"]
+    setup["first_launch"] = {}
+    print_setup("later cell", setup)
+    out = capsys.readouterr().out.splitlines()
+    assert "loaded before this cell" in out[3] and "0.2500" in out[3]
+    assert out[4].split()[:5] == ["fst.first_launch", "0.0000", "s", "over",
+                                  "0"]
+    assert len(out) == 5
 
 
 def test_trace_ctx_writes_the_step_spans(tmp_path):
