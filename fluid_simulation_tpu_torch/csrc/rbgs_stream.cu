@@ -25,13 +25,13 @@
 //
 // Keep inside a pass. The ring holds pre-keep values u. In the red half a
 // red cell reads its black neighbours post-keep, u*keep (relax multiplies
-// the whole field by keep after each sweep), which the kernel keeps beside
-// the black cells in shared memory; in the black half a black cell reads
-// its red neighbours' fresh pre-keep updates, as relax does. Solid cells
-// are updated like any other and their neighbours read those values. The
-// black cells' keep itself lives in the registers of the thread that
-// updates them, one bit a cell: so keep must hold only 0.0 and 1.0,
-// as every mask of scene/masks.py does (kernels/linsolve_stream.py says so
+// the whole field by keep after each sweep); in the black half a black cell
+// reads its red neighbours' fresh pre-keep updates, as relax does. Solid
+// cells are updated like any other and their neighbours read those values.
+// The black cells' keep lives in shared memory as one bit a cell, and the
+// red half multiplies by it only in planes that hold a black cell whose
+// keep is not 1 (rbgs_tile.cuh): so keep must hold only 0.0 and 1.0, as
+// every mask of scene/masks.py does (kernels/linsolve_stream.py says so
 // where it takes one).
 //
 // Design: a 2.5-D z-march ("3.5-D blocking", Nguyen et al., SC'10). A block
@@ -76,14 +76,15 @@
 //   form                    threads  registers  shared B   blocks an SM
 //   sweep 1 (nsw 1, padded)     192         96    30,720              3
 //   pass nsw 1                  192         61    30,720              5
-//   pass nsw 1, keep            192         64    38,400              5
+//   pass nsw 1, keep            192         80    34,096              4
 //   pass nsw 2                  416         72    89,600              2
-//   pass nsw 2, keep            416         72   112,000              2
-// Two keep blocks of 113 KB take the SM's largest shared-memory carveout
-// and leave 28 KB of L1 to the quads' strided plane loads, which caps what
-// the second block gains (a pass at 512x256x256: 0.476 ms against 0.507
-// at one block; the empty form made to claim as much shared memory ran
-// 10 % slower, PERF.md).
+//   pass nsw 2, keep            416         72    96,160              2
+// The keep forms load their planes coalesced, by cp.async, and keep no
+// copy of the black cells' u*keep: their ring no longer holds 22.4 KB a
+// block of it (112,000 B), so two keep blocks fit the 196 KB carveout and
+// leave 60 KB of L1, as the empty form's do, where the 228 KB one left 28
+// (a keep pass at 512x256x256: 0.476 ms before, 0.427-0.432 after;
+// PERF.md K11).
 //
 // The march itself is in rbgs_tile.cuh, which sweepcost.cu shares for the
 // sweep-cost variants; this file instantiates only its production form.

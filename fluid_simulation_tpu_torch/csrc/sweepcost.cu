@@ -33,6 +33,13 @@
 //                                             each region, from the staged
 //                                             rhs
 //
+// and one variant of this port's own, which removes nothing:
+//   coalesced  the plane loads of the keep forms (rbgs_tile.cuh's fetch
+//              and land: a warp's 32 consecutive cells by cp.async, straight
+//              into the ring) in place of a quad a thread through registers;
+//              its time against full is what those loads would give the
+//              empty forms, which keep theirs
+//
 // What stays in every variant: the march (one plane loaded into registers
 // and written into the ring a step, rhs staged beside it, a barrier after
 // each half-sweep, the final plane stored), the shrinking regions and the
@@ -76,7 +83,8 @@ extern "C" {
 
 // One empty-scene pass of nsw (1 or 2) sweeps of the packed carry, with the
 // mechanisms of `variant` (0 full, 1 nosel, 2 noiota, 3 noroll, 4 nozn,
-// 5 arith) removed; refuses anything else with cudaErrorInvalidValue.
+// 5 arith) removed, or (6 coalesced) with the keep forms' plane loads;
+// refuses anything else with cudaErrorInvalidValue.
 int fst_sweepcost_pass(const void* fin, const void* rhs, int rsz, int rsy,
                        void* out, int D, int H, int W, float a, float crec,
                        int nsw, int neg_mask, int variant, void* stream) {
@@ -99,6 +107,9 @@ int fst_sweepcost_pass(const void* fin, const void* rhs, int rsz, int rsy,
     case kArith:
       return launch_variant<kArith>(fin, rhs, rsz, rsy, out, D, H, W, a,
                                     crec, nsw, neg_mask, stream);
+    case kCoalesced:
+      return launch_variant<kCoalesced>(fin, rhs, rsz, rsy, out, D, H, W, a,
+                                        crec, nsw, neg_mask, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,8 +2,9 @@
 
 Every wrapper runs its plain version for a tensor on the CPU and, for a CUDA
 tensor, launches its kernel or raises — never falls back. ``LAUNCHES``
-counts wrapper calls that launched a kernel, one per call, so a run can
-show which kernels carried it:
+counts wrapper calls that launched a kernel, one per call (and, as
+``rbgs_pass_keep``, one form's launches inside them), so a run can show
+which kernels carried it:
 
 - ``rbgs_solve``        (kernels/linsolve.py)     one per empty-scene solve
 - ``rbgs_solve_keep``   (kernels/linsolve.py)     one per obstacle-scene solve
@@ -17,6 +18,10 @@ show which kernels carried it:
   empty-scene solve (big grids)
 - ``rbgs_solve_stream_keep`` (kernels/linsolve_stream.py) one per streamed
   obstacle-scene solve
+- ``rbgs_pass_keep``         (kernels/linsolve_stream.py) one per pass
+  kernel launched with a keep mask (the streamed keep solve's and masked
+  projection's passes, and ``sweep_pass`` with one): 37 a 512x256x256
+  sphere step, 0 an empty one
 - ``project_stream``         (kernels/project_stream.py)  one per streamed
   empty projection
 - ``project_stream_masked``  (kernels/project_stream.py)  one per streamed
@@ -88,7 +93,8 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "project_masked": 0, "advect_split": 0, "pad_bounds": 0,
             "pad_bounds_masked": 0, "confinement": 0,
             "rbgs_solve_stream": 0, "rbgs_solve_stream_keep": 0,
-            "project_stream": 0, "project_stream_masked": 0,
+            "rbgs_pass_keep": 0, "project_stream": 0,
+            "project_stream_masked": 0,
             "trilinear_gather": 0, "rbgs_solve3": 0,
             "rbgs_solve_unpacked": 0, "advect_split_fused": 0,
             "rbgs_sweep_packed": 0, "rbgs_sweep": 0, "prestep": 0,

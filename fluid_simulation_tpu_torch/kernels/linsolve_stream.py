@@ -266,7 +266,8 @@ def _launch_sweep1(field, rhs_i, out, a, c):
 
 
 def _launch_pass(fin, rhs_i, keep_i, out, b, a, c, nsw, wall_mode):
-    """One pass of ``nsw`` sweeps from ``fin`` into ``out`` (both packed)."""
+    """One pass of ``nsw`` sweeps from ``fin`` into ``out`` (both packed);
+    a pass with a keep mask counts as ``rbgs_pass_keep``."""
     D, H, W = fin.shape
     dev = fin.get_device()
     rp, rsz, rsy = _build.mask_view("rbgs_pass", rhs_i, (D, H, W), dev)
@@ -276,6 +277,8 @@ def _launch_pass(fin, rhs_i, keep_i, out, b, a, c, nsw, wall_mode):
     mask = _build.neg_mask([face_signs(b, wall_mode)])
     _build.launch("fst_rbgs_pass", dev, _build.ptr(fin), rp, rsz, rsy, kp,
                   ksz, ksy, _build.ptr(out), D, H, W, a32, crec, nsw, mask)
+    if keep_i is not None:
+        LAUNCHES["rbgs_pass_keep"] += 1
 
 
 # ---- The pass kernel's plan, and a NumPy emulation of its march --------
@@ -291,7 +294,7 @@ def march_geometry(nsw: int):
     cell a half-sweep), a ring plane's width and rows with it, a row's
     cells of one colour, and the ring's slots (the 2*nsw + 2 planes one
     march step reads, and one for the plane being loaded), which hold u,
-    rhs and the black cells' u*keep alike."""
+    rhs and the black cells' keep bits alike."""
     M, (tx, ty) = 2 * nsw, MARCH_TILE[nsw]
     L, LY = tx + 2 * M, ty + 2 * M
     return M, L, LY, L // 2, 2 * nsw + 3
@@ -365,7 +368,10 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
     [h+1, L-2-h] x [h+1, LY-2-h] (which shrinks a cell a side a half) and
     ``half_planes``, plane j+1 goes into its slot just before the last
     half, and plane j-M, now final, is stored where it is an output
-    plane."""
+    plane. Who loads which word is not modelled here: the keep forms'
+    coalesced loads (a warp's 32 consecutive cells) land each cell in the
+    word ``_split`` gives it, which ``tests/test_torch_stream.py`` holds
+    for them."""
     tile = MARCH_TILE[nsw]
     M, L, LY, HW, R = march_geometry(nsw)
     f32 = np.float32
@@ -404,7 +410,6 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
                 face = face_block(x0, y0, H, W, nsw)
                 u = np.zeros((R, 2, LY, HW), f32)
                 rh = np.zeros((R, 2, LY, HW), f32)
-                ub = np.zeros((R, LY, HW), f32)     # black cells' u*keep
                 kb = np.zeros((R, LY, HW), bool)    # black cells' keep bits
 
                 def read(q):
@@ -420,7 +425,6 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
                     u[s], rh[s] = plane[0], plane[1]
                     if keep:                        # black: parity 0
                         kb[s] = plane[2][0] != 0
-                        ub[s] = u[s, 0] * plane[2][0]
 
                 def update(h, q):
                     s, sp, sm = ((q + d - zlo) % R for d in (0, 1, -1))
@@ -439,8 +443,10 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
                             continue
                         red_keep = keep and p == 1
 
-                        def other(t):
-                            return ub[t] if red_keep else u[t, 1 - p]
+                        def other(t):     # the red half: post-keep
+                            if red_keep:
+                                return u[t, 0] * kb[t].astype(f32)
+                            return u[t, 1 - p]
 
                         o = other(s)
                         rr = np.broadcast_to(rows, lx.shape)
@@ -466,9 +472,6 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
                         t = ((((xp + xm) + yp) + ym) + zp) + zm
                         new = (rh[s, p] + a * t) * crec
                         u[s, p] = np.where(mask, new, own)
-                        if keep and p == 0:
-                            ub[s] = np.where(mask, new * kb[s].astype(f32),
-                                             ub[s])
 
                 write(zlo, read(zlo))
                 for j in range(zlo, zend + 1):

@@ -14,12 +14,16 @@ split its time. Here the same is done to the port's empty-scene pass
 - ``noroll``: the x and y neighbours are the cell itself;
 - ``nozn``: the z neighbours are the cell itself;
 - ``arith``: no neighbours and no colours: each cell ``2*nsw`` times
-  ``u = (rhs + a*(6*u)) * (1/c)``.
+  ``u = (rhs + a*(6*u)) * (1/c)``;
+- ``coalesced``: nothing removed; the plane loads of the keep forms
+  (consecutive cells a warp, by ``cp.async``) in place of a quad a thread,
+  so that its time against ``full`` says what those loads give the empty
+  pass. The same function as ``full``.
 
-Only ``full`` and ``noiota`` compute the solve; the others are wrong by
-design, and each is held to its own plain version. The probe that times
-them is ``fluid_simulation_tpu_torch/tools/exp_sweepcost.py``; no route of
-the wind tunnel calls them.
+Only ``full``, ``noiota`` and ``coalesced`` compute the solve; the others
+are wrong by design, and each is held to its own plain version. The probe
+that times them is ``fluid_simulation_tpu_torch/tools/exp_sweepcost.py``;
+no route of the wind tunnel calls them.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from fluid_simulation_tpu_torch.kernels.linsolve_stream import (
 from fluid_simulation_tpu_torch.ops.bounds import face_signs
 from fluid_simulation_tpu_torch.scene.masks import red_parity
 
-VARIANTS = ("full", "nosel", "noiota", "noroll", "nozn", "arith")
+VARIANTS = ("full", "nosel", "noiota", "noroll", "nozn", "arith",
+            "coalesced")
 
 
 def _check(variant: str, nsw: int) -> None:
@@ -66,7 +71,7 @@ def sweep_pass_variant_plain(fpre, rhs_i, variant: str, nsw: int, b: int,
     """One empty-scene pass of ``nsw`` sweeps of the carry ``fpre`` with
     ``variant``'s mechanisms removed, in plain torch (module docstring)."""
     _check(variant, nsw)
-    if variant in ("full", "noiota"):
+    if variant in ("full", "noiota", "coalesced"):
         return pass_plain(fpre, rhs_i, None, b, a, c, nsw, wall_mode)
     a, crec = _consts(a, c, fpre.dtype)
     if variant == "arith":

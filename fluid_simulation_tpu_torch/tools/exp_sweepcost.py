@@ -8,7 +8,8 @@ Port of ``tools/exp_sweepcost.py`` (ROADMAP B23). Its rows, under its names
 and in its order (``kernels/sweepcost.py`` says what each removes), each
 ``c = row(c, r)`` from ``c = 0.1`` everywhere with ``r = 1.5c + 0.25``
 made once: ``full``, ``nosel``, ``noiota``, ``noroll``, ``nozn`` and
-``arith``, at nsw 1 (the JAX probe's 1-sweep kernel) and nsw 2 (the pass
+``arith``, and ``coalesced`` (the keep forms' plane loads in the empty
+pass), at nsw 1 (the JAX probe's 1-sweep kernel) and nsw 2 (the pass
 the big-grid route runs), empty scene, b = 1, reference walls, a = 1e-4,
 c = 1.0006 (``exp_sweepcost.py:42``), and after each nsw the production
 pass itself (``rbgs_pass``, through ``kernels/linsolve_stream.sweep_pass``:

@@ -27,6 +27,63 @@ def test_march_form_fits_two_blocks_an_sm(form):
         assert blocks >= 2, (form, blocks)
 
 
+# (D, H, W) of the keep passes' cases: W and H off the 32-cell tile and W
+# % 4 != 0, D under the ring, under a 32-plane z-range and one past it,
+# grids of face and interior blocks, and the bench's 512x256x256
+PASS_SHAPES = [(1, 7, 13), (3, 21, 37), (33, 13, 9), (11, 36, 70),
+               (35, 70, 101), (256, 256, 512)]
+
+
+def _pass_case(dhw, mask, seed):
+    """A carry, an interior rhs view and the keep operand, on the card: an
+    interior view of the padded ``keep_vel`` or ``keep_scalar`` (the
+    solves') or the contiguous ``fluid_i`` (the masked projection's), of
+    random 0/1 solids, or of the bench's sphere at 512x256x256."""
+    from fluid_simulation_tpu_torch.scene.masks import build_masks
+    from fluid_simulation_tpu_torch.scene.primitives import (
+        big_sphere, empty_obstacles)
+    D, H, W = dhw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dhw == (256, 256, 512):
+        obs = big_sphere(W, H, D)
+    else:
+        obs = empty_obstacles(W, H, D)
+        solid = torch.rand((D, H, W), generator=g, device="cuda") < 0.2
+        obs[1:-1, 1:-1, 1:-1] = solid.float().cpu().numpy()
+    m = build_masks(obs, device="cuda")
+    keep_i = (m.fluid_i if mask == "fluid_i" else
+              getattr(m, mask)[1:-1, 1:-1, 1:-1])
+    fpre = torch.randn((D, H, W), generator=g, device="cuda")
+    rhs = torch.randn((D + 2, H + 2, W + 2), generator=g, device="cuda")
+    return fpre, rhs[1:-1, 1:-1, 1:-1], keep_i
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dhw", PASS_SHAPES)
+@pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("mask,b,a,c,wall_mode", [
+    ("keep_vel", 1, 0.7, 5.2, "reference"),
+    ("keep_scalar", 0, 2.5e-3, 1.015, "noslip"),
+    ("fluid_i", 0, 1.0, 6.0, "reference")])
+def test_keep_pass_bitwise_to_plain(dhw, nsw, mask, b, a, c, wall_mode):
+    """The pass kernel's keep forms (nsw 1 and 2; their coalesced plane
+    loads, ``csrc/rbgs_tile.cuh``) equal ``pass_plain`` bit for bit, with
+    the keep operand as the step passes it: an interior view of a padded
+    keep mask (the diffusions') or the contiguous ``fluid_i`` (the
+    projection's Poisson solve, a = 1, c = 6). Each call counts one
+    ``rbgs_pass_keep``."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from fluid_simulation_tpu_torch.kernels import LAUNCHES
+    fpre, rhs_i, keep_i = _pass_case(dhw, mask, seed=sum(dhw) + nsw)
+    assert keep_i.is_contiguous() == (mask == "fluid_i")
+    before = LAUNCHES["rbgs_pass_keep"]
+    got = ls.sweep_pass(fpre, rhs_i, keep_i, b, a, c, nsw, wall_mode)
+    assert LAUNCHES["rbgs_pass_keep"] == before + 1
+    want = ls.pass_plain(fpre, rhs_i, keep_i, b, a, c, nsw, wall_mode)
+    assert _same_bits(got, want)
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("dhw", [(1, 1, 1), (3, 5, 7), (5, 3, 130),
                                  (2, 3, 600), (8, 8, 16)])

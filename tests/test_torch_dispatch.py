@@ -49,6 +49,9 @@ torch.set_num_threads(1)
 
 CPU = "cpu"
 W, H, D = 16, 8, 8
+# the pass kernel's launcher itself, which counts the keep form's launches
+# (the ``card`` fixture swaps it for a stub)
+LAUNCH_PASS = k11._launch_pass
 PAD = (D + 2, H + 2, W + 2)
 INTERIOR = (D, H, W)
 
@@ -586,6 +589,34 @@ def test_streamed_step_launch_counts(card, monkeypatch, streamed, scene,
                     pad_bounds=2)
     assert _run_two_steps(p, obs, zero_edges=True) == _step_counts(
         **want, **vort)
+
+
+@pytest.mark.parametrize("scene,keep_passes", [(SPHERE, 37), (None, 0)])
+def test_streamed_step_counts_its_keep_passes(card, monkeypatch, scene,
+                                              keep_passes):
+    """``rbgs_pass_keep`` counts the pass kernel's launches with a keep
+    mask (``linsolve_stream._launch_pass``, the launch itself stubbed): a
+    512x256x256 sphere step's routing (acc 15, the route constant lowered
+    to this grid) launches 37 passes, three diffusions of seven after sweep
+    1 and two projections of seven and a one-sweep remainder, and every one
+    is the keep form; an empty step launches the same 37 and counts none."""
+    assert k11.streams((258, 258, 514)) and SimParams().acc == 15
+    monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
+    monkeypatch.setattr(k11, "_launch_pass", LAUNCH_PASS)
+    passes = []
+
+    def launch(name, device, *args):
+        assert name == "fst_rbgs_pass" and device == -1
+        passes.append((args[4] is not None, args[13]))   # keep, nsw
+    monkeypatch.setattr(_build, "launch", launch)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
+    WindTunnel(SimParams(width=W, height=H, depth=D, mode="split"),
+               obstacles=obs, device=CPU).simulate(1)
+    assert sorted(passes) == [(scene is not None, 1)] * 2 + [
+        (scene is not None, 2)] * 35
+    assert LAUNCHES["rbgs_pass_keep"] == keep_passes
+    assert LAUNCHES[("rbgs_solve_stream_keep" if scene else
+                     "rbgs_solve_stream")] == 3
 
 
 @pytest.mark.parametrize("scene", [None, SPHERE])
@@ -1224,9 +1255,10 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
         assert torch.equal(got, want)
     assert torch.equal(out34, advect(2, g, vx, vy, vz, m, 0.05, "noslip"))
     # every wrapper once; the colour-packed solves' sweep 1 adds one K1
-    # keep solve and one blocked sweep
+    # keep solve and one blocked sweep; the keep passes' count is the
+    # launcher's, which the stubs replace
     assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
-                        "rbgs_solve_blocked": 2}
+                        "rbgs_solve_blocked": 2, "rbgs_pass_keep": 0}
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -1424,7 +1456,8 @@ def test_stream_probes_count_their_launches(card):
     for _, _, kernel, _ in variants:
         kernel(c0)
     copy2hd.step(c0)
-    assert LAUNCHES == _counts(hbm_stream=1, sweepcost_pass=12)
+    assert LAUNCHES == _counts(hbm_stream=1,
+                               sweepcost_pass=2 * len(k23s.VARIANTS))
 
 
 def test_launch_error_raises(monkeypatch):

@@ -359,6 +359,182 @@ def test_march_plan_is_the_kernels():
                                                                (13, 9)))
 
 
+# The keep forms' coalesced plane loads (rbgs_tile.cuh ``fetch`` and
+# ``land``), as a NumPy model of who loads which word: quad owner t < NQ
+# copies cells c = t + i*NQ (i = 0..3) of the L x LY ring plane in
+# row-major order into word c // 2 of the half of the cell's parity, and
+# warp t // 32's ballot of its copies' keep (black cells only) is word
+# i*WPI + t // 32 of the slot's keep bits. The owner of quad t reads cells
+# 4t .. 4t+3 as ``write`` lays them out, and in a red half the keep bits
+# of its black neighbours at ``kpos`` and the offsets ``half`` gives them.
+
+
+def _march_threads(nsw):
+    """``(THREADS, NQ, WPI, HP)`` of the pass kernel's keep form at ``nsw``,
+    as ``March`` and ``half_stride`` compute them."""
+    _, L, LY, HW, _ = march_geometry(nsw)
+    nq = LY * (HW // 2)
+    threads = -(-nq // 32) * 32
+    return threads, nq, threads // 32, -(-LY * HW // 32) * 32 + 16
+
+
+def _load_plan(nsw, x0, y0, q, D, H, W):
+    """Every copy one plane's ``fetch`` makes, as rows (i, t, c, row, lx,
+    half, word, copied), in the order of (i, t): ``copied`` False where the
+    ring holds a zero."""
+    _, L, _, _, _ = march_geometry(nsw)
+    _, nq, _, _ = _march_threads(nsw)
+    face = face_block(x0, y0, H, W, nsw)
+    plan = []
+    for i in range(4):
+        for t in range(nq):
+            c = t + i * nq
+            r, lx = divmod(c, L)
+            gy, gx = y0 + r, x0 + lx
+            ok = 0 <= q < D and (not face or (0 <= gx < W and 0 <= gy < H))
+            plan.append((i, t, c, r, lx, (gx + gy + q) & 1, c >> 1, ok))
+    return plan
+
+
+def _owner_words(nsw, y0, q):
+    """The (half, word) each cell's quad owner reads it from: cells 0 and 2
+    of quad t at words f, f+1 (f = 2t) of half e = (y0 + row + q) & 1, cells
+    1 and 3 at the same words of half e ^ 1."""
+    _, L, _, HW, _ = march_geometry(nsw)
+    _, nq, _, _ = _march_threads(nsw)
+    want = {}
+    for t in range(nq):
+        row, kq = divmod(t, HW // 2)
+        f, e = row * HW + 2 * kq, (y0 + row + q) & 1
+        for c in range(4):
+            want[row * L + 4 * kq + c] = ((e ^ (c & 1)), f + c // 2)
+    return want
+
+
+def _keep_words(nsw, plan, keep):
+    """``land``'s ballots as one int: bit 32*(i*WPI + t // 32) + t % 32 set
+    where copy i of thread t is of a black cell (half 0) whose keep is not
+    0."""
+    _, _, wpi, _ = _march_threads(nsw)
+    words = 0
+    for i, t, _, r, lx, half, _, ok in plan:
+        if half == 0 and ok and keep[r, lx] != 0:
+            words |= 1 << (32 * (i * wpi + t // 32) + t % 32)
+    return words
+
+
+def _kpos(nsw, t):
+    """The kernel's ``kpos`` of quad t: 32 * word + bit of its first cell
+    in a slot's keep bits."""
+    _, nq, wpi, _ = _march_threads(nsw)
+    b = 4 * t // nq
+    tl = 4 * t - b * nq
+    return (b * wpi + (tl >> 5)) * 32 + (tl & 31)
+
+
+@pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("where", ["interior", "low faces", "high faces",
+                                   "z ends"])
+def test_march_coalesced_loads_land_where_their_owner_reads(nsw, where):
+    """The keep forms' plane loads (rbgs_tile.cuh ``fetch``, ``land``):
+    every cell of a ring plane lands exactly once, in the colour half and
+    word its quad's owner reads it from (a zero outside the domain), a
+    warp's 32 copies read consecutive cells and write 32 banks, and where
+    a red half reads its black neighbours' keep bits it finds each
+    neighbour's own (``half``'s windows from ``kpos``). Interior and face
+    blocks, and the first and last planes, each of both parities."""
+    M, L, LY, HW, R = march_geometry(nsw)
+    tx, ty = MARCH_TILE[nsw]
+    threads, nq, wpi, hp = _march_threads(nsw)
+    D, H, W = 9, 2 * ty + 7, 3 * tx + 5
+    block = {"interior": (tx - M, ty - M), "low faces": (-M, -M),
+             "high faces": (3 * tx - M, 2 * ty - M),
+             "z ends": (tx - M, -M)}
+    x0, y0 = block[where]
+    assert face_block(x0, y0, H, W, nsw) == (where != "interior")
+    planes = (0, 1, D - 2, D - 1) if where == "z ends" else (3, 4)
+    rng = np.random.default_rng(nsw * 10 + len(where))
+    for q in planes:
+        plan = _load_plan(nsw, x0, y0, q, D, H, W)
+        owner = _owner_words(nsw, y0, q)
+        assert sorted(c for _, _, c, *_ in plan) == list(range(L * LY))
+        assert {c: (half, w) for _, _, c, _, _, half, w, _ in plan} == owner
+        for i, t, c, r, lx, _, _, ok in plan:
+            assert (r, lx) == (t // L + i * (LY // 4), t % L), (i, t)
+            assert ok == (0 <= x0 + lx < W and 0 <= y0 + r < H), (c, q)
+        warps = {}
+        for row in plan:                     # a warp's copy i
+            warps.setdefault((row[0], row[1] // 32), []).append(row)
+        assert len(warps) == 4 * -(-nq // 32)
+        for warp in warps.values():
+            cells = [row[2] for row in warp]
+            assert cells == list(range(cells[0], cells[0] + len(cells)))
+            banks = [(row[5] * hp + row[6]) % 32 for row in warp]
+            assert len(set(banks)) == len(banks), (q, warp[0][:2])
+    # the red half's reads of its black neighbours' keep bits on plane q
+    # (``half``'s windows from kpos + off): x at -1, +1, +3, rows ±1 at
+    # ±(L or L + the copy's spare bits), planes q ± 1 at 0, each the bit of
+    # that neighbour, for every red cell a half-sweep updates
+    keeps = {q: (rng.uniform(size=(LY, L)) < 0.6).astype(np.float32)
+             for q in range(2, 6)}
+    words = {q: _keep_words(nsw, _load_plan(nsw, x0, y0, q, D, H, W), k)
+             for q, k in keeps.items()}
+    pad, rs = 32 * wpi - nq, LY // 4
+    for q, t in ((q, t) for q in (3, 4) for t in range(nq)):
+        row, kq = divmod(t, HW // 2)
+        if not 1 <= row <= LY - 2:
+            continue
+        off = (1 ^ (y0 + row) ^ q) & 1    # the red half's first cell
+        k0 = _kpos(nsw, t) + off
+        dyp = L + (pad if row % rs == rs - 1 else 0)
+        dym = L + (pad if row % rs == 0 else 0)
+        for lx, dx in ((4 * kq + off, 0), (4 * kq + off + 2, 2)):
+            if not 1 <= lx <= L - 2:
+                continue
+            reads = [(q, row, lx - 1, k0 + dx - 1), (q, row, lx + 1,
+                                                    k0 + dx + 1),
+                     (q, row + 1, lx, k0 + dyp + dx),
+                     (q, row - 1, lx, k0 - dym + dx),
+                     (q + 1, row, lx, k0 + dx), (q - 1, row, lx, k0 + dx)]
+            for qq, r, x, pos in reads:
+                assert (x0 + x + y0 + r + qq) & 1 == 0   # a black cell
+                inside = 0 <= x0 + x < W and 0 <= y0 + r < H
+                want = inside and keeps[qq][r, x] != 0
+                assert (words[qq] >> pos) & 1 == want, (t, qq, r, x)
+
+
+def test_march_coalesced_plan_is_the_kernels():
+    """The model's formulas are the kernel's: the copies' rows, half and
+    word, the ballot's word, the owner's bits, the halves' 16-word offset,
+    and the ring's shared memory, which keeps two keep blocks an SM at nsw
+    2."""
+    src = (Path(linsolve_stream.__file__).parents[1] / "csrc"
+           / "rbgs_tile.cuh").read_text()
+    for expr in ("static constexpr int RS = LY / 4;",
+                 "static constexpr int WPI = THREADS / 32;",
+                 "static constexpr int KW = 4 * WPI + 4;",
+                 "const int cy = y0 + t / G::L, cx = x0 + t % G::L;",
+                 "cpar = (cx + cy) & 1;",
+                 "const int e = (cpar ^ q) & 1;   // the half of copy 0",
+                 "const int hf = e ^ (i * G::RS & 1), wi = w + i * (G::NQ / 2);",
+                 "kb[s * G::KW + i * G::WPI + (threadIdx.x >> 5)] = bits;",
+                 "const int b = 4 * t / G::NQ, tl = 4 * t - b * G::NQ;",
+                 "kpos = (b * G::WPI + (tl >> 5)) * 32 + (tl & 31);",
+                 "const int dyp = G::L + (row % G::RS == G::RS - 1 ? PAD : 0);",
+                 "const int dym = G::L + (row % G::RS == 0 ? PAD : 0);",
+                 "const unsigned bx = kwin(s, k0 - 1);",
+                 "const unsigned by = kwin(s, k0 + dyp), bm = kwin(s, k0 - dym);",
+                 "const unsigned bp = kwin(sp, k0), bz = kwin(sm, k0);",
+                 "return March<NSW>::HS + (COAL ? 16 : 0);"):
+        assert expr in src, expr
+    threads, nq, wpi, hp = _march_threads(2)
+    _, L, LY, HW, R = march_geometry(2)
+    smem = 4 * (R * 4 * hp + R * (4 * wpi + 4) + hp - 16)
+    assert (threads, nq, wpi, smem) == (416, 400, 13, 96160)
+    # two blocks an SM in the 196 KB carveout, which leaves 60 KB of L1
+    assert 2 * (smem + 1024) <= 196 * 1024
+
+
 def test_pass_probe_runs_its_rows_on_the_cpu(capsys):
     """tools/exp_pass on the host: every production form of the pass
     kernel, each row its plain version on the host clock."""

@@ -90,6 +90,17 @@ def test_full_and_noiota_are_the_production_pass(nsw, b, wall):
 
 
 @pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("b,wall", [(1, "reference"), (2, "noslip")])
+def test_coalesced_is_the_production_pass(nsw, b, wall):
+    """``coalesced`` changes only who loads which word: its function is the
+    pass's, on the host and (``sweep_pass_variant``'s CPU branch) alike."""
+    f, r = (torch.tensor(x) for x in _inputs((10, 7, 13), seed=nsw + b))
+    want = pass_plain(f, r, None, b, A, C, nsw, wall)
+    for fn in (sweep_pass_variant_plain, sweep_pass_variant):
+        assert torch.equal(fn(f, r, "coalesced", nsw, b, A, C, wall), want)
+
+
+@pytest.mark.parametrize("nsw", [1, 2])
 @pytest.mark.parametrize("interior,blk", [((16, 8, 16), 8), ((12, 8, 16), 8)])
 def test_full_matches_jax_packed_sweep(nsw, interior, blk):
     """The JAX one-sweep streamed kernel, b = 1, empty scene, as
@@ -157,11 +168,13 @@ def test_probe_runs_its_rows_on_the_cpu(capsys):
                                "--n", "1"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert "host CPU, host clock (no device metric)" in lines[0]
-    names = [" ".join(ln.split()[:2]) for ln in lines[1:15]]
+    rows = 2 * (len(VARIANTS) + 1)
+    names = [" ".join(ln.split()[:2]) for ln in lines[1:rows + 1]]
     assert names == [f"{v} nsw={n}" for n in (1, 2)
                      for v in VARIANTS + ("rbgs_pass",)]
-    assert lines[15].startswith("copy2hd") and "no rate" in lines[15]
-    assert lines[16].startswith("full nsw=1 / copy2hd")
+    assert lines[rows + 1].startswith("copy2hd")
+    assert "no rate" in lines[rows + 1]
+    assert lines[rows + 2].startswith("full nsw=1 / copy2hd")
 
 
 def test_probe_needs_the_card_by_default(monkeypatch):
