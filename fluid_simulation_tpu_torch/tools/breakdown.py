@@ -9,7 +9,8 @@ profiles the cells on one CUDA device (split and compat at 128x64x64, split
 at 128x64x64 with the bench's sphere and with no-slip walls and vorticity,
 the split step on the plain torch path, fast at 128x64x64, and the bench's
 big grids in split mode, 256x128x128, 256^3 and 512x256x256, each empty
-and with its sphere), prints per cell a set-up table (the tunnel's
+and with its sphere, and the 512x256x256 sphere with no-slip walls and
+vorticity), prints per cell a set-up table (the tunnel's
 construction and first step under the profiler, by the set-up spans of
 ``utils/profiling.py``, with the process's own records after the first
 cell: the kernel library's load and each entry point's first launch, which
@@ -261,14 +262,19 @@ def host_ms(wt, steps: int, warmup: int = 5) -> float:
 
 def big_cells() -> Dict[str, Tuple[SimParams, Optional[np.ndarray]]]:
     """The bench's six big configs in split mode, each empty and with its
-    sphere: the streamed route (``kernels/linsolve_stream.py``). Building
-    the spheres takes ~1 GB of host memory at 512x256x256."""
+    sphere: the streamed route (``kernels/linsolve_stream.py``); and the
+    512x256x256 sphere with no-slip walls and vorticity 5.0 (the bench's
+    ``noslip_vorticity``), which runs K10 on that route. Building the
+    spheres takes ~1 GB of host memory at 512x256x256."""
     split = SimParams(div_stats=False, step_stats=False, mode="split")
     out = {}
     for (w, h, d) in BIG_SPHERES:
         p = split.replace(width=w, height=h, depth=d)
         out[f"split {w}x{h}x{d}"] = (p, None)
         out[f"split {w}x{h}x{d} sphere"] = (p, big_sphere(w, h, d))
+    p, obs = out["split 512x256x256 sphere"]
+    out["split 512x256x256 sphere noslip+vorticity"] = (
+        p.replace(wall_mode="noslip", vorticity=5.0), obs)
     return out
 
 

@@ -251,6 +251,45 @@ def _k20_case(dhw, scene, reach):
     return vel, dens, build_masks(flagship_sphere(), device="cuda"), dt
 
 
+@pytest.mark.card
+@pytest.mark.parametrize("dhw", [(1, 1, 1), (3, 5, 7), (9, 11, 37),
+                                 (256, 256, 512)])
+def test_confinement_bitwise_to_plain(dhw):
+    """Vorticity confinement (K10) equals ``confinement_plain`` bit for bit,
+    one counted call, on velocities whose ghost faces the no-slip walls
+    wrote, with the interior view of ``keep_vel`` as the step passes it:
+    random solids on ragged grids, the bench's sphere at 512x256x256."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from fluid_simulation_tpu_torch.kernels import LAUNCHES
+    from fluid_simulation_tpu_torch.kernels.vorticity import (
+        confinement, confinement_plain)
+    from fluid_simulation_tpu_torch.ops.bounds import write_faces_
+    from fluid_simulation_tpu_torch.scene.masks import build_masks
+    from fluid_simulation_tpu_torch.scene.primitives import (
+        big_sphere, empty_obstacles)
+    D, H, W = dhw
+    g = torch.Generator(device="cuda").manual_seed(D * 10007 + H * 101 + W)
+    if dhw == (256, 256, 512):
+        obs = big_sphere(W, H, D)
+    else:
+        obs = empty_obstacles(W, H, D)
+        solid = torch.rand((D, H, W), generator=g, device="cuda") < 0.2
+        obs[1:-1, 1:-1, 1:-1] = solid.float().cpu().numpy()
+    keep_i = build_masks(obs, device="cuda").keep_vel[1:-1, 1:-1, 1:-1]
+    vel = []
+    for b in (1, 2, 3):
+        v = 15.0 * torch.randn((D + 2, H + 2, W + 2), generator=g,
+                               device="cuda")
+        vel.append(write_faces_(v, b, "noslip"))
+    want = confinement_plain(*vel, keep_i, 5.0, 0.05)
+    before = LAUNCHES["confinement"]
+    got = confinement(*vel, keep_i, 5.0, 0.05)
+    assert LAUNCHES["confinement"] == before + 1
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+
+
 # A fresh process on the card: one tunnel built outside any profiler (its
 # context span holds the context), then, under ``trace_ctx``, a second
 # tunnel's construction and the process's first step, every C entry point
