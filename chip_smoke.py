@@ -23,6 +23,8 @@ final ``ok`` line):
    with and without keep, div_packed, grad_packed) against their plain
    versions, bitwise, at 256x128x128 with the bench sphere's masks and at
    an odd 13x7x10 with random 0/1 solids and no-slip walls (ragged tiles);
+   the keep passes' tables of keep-free blocks (``keep_vel`` and
+   ``fluid_i``, nsw 1 and 2) byte for byte against ``march_table_plain``;
    the streamed solve and projection wrappers against their plain versions
    (nsw 2 and 1, an odd acc) and against the resident route (K1, K1 keep,
    K2 + tail, K6 + tail) for b = 0..3; their times and bounds; then the
@@ -51,7 +53,9 @@ final ``ok`` line):
    ``WindTunnel(...).simulate``: 256x128x128 for 10 steps, 256^3 for 4,
    512x256x256 for 3, each empty and with its sphere. Launch counts per
    step prove the streamed route ran (3 streamed solves, 2 streamed
-   projections, 2 advections, 4 paddings); the residual bounds; solids
+   projections, 2 advections, 4 paddings; with the sphere 37 keep passes,
+   and 3 tables of their keep-free blocks in the run, which equal
+   ``march_table_plain``'s at both depths); the residual bounds; solids
    exactly 0; each sphere's density sum differs from its empty twin's; at
    256x128x128 one step of the kernel path equals the plain path; the
    density sums exactly (repr), to hold against another tree's; ms/step;
@@ -494,11 +498,11 @@ class Smoke:
         print(f"   {name:14s} {shapes}: kernel {ms:.4f} ms"
               f", plain {pms:.4f} ms per call", flush=True)
 
-    def run_path(self, wt, steps, label, **nonzero):
+    def run_path(self, wt, steps, label, once=None, **nonzero):
         """Drive ``wt`` for ``steps`` with the counts set to 0 just before
-        and read just after; they must equal ``nonzero`` per step (every
-        other counter 0). Each kernel's launches are taken from the first
-        path that runs it."""
+        and read just after; they must equal ``nonzero`` per step, plus
+        ``once`` over the whole run (every other counter 0). Each kernel's
+        launches are taken from the first path that runs it."""
         torch = self.torch
         from fluid_simulation_tpu_torch.kernels import LAUNCHES, reset_launches
         reset_launches()
@@ -509,7 +513,8 @@ class Smoke:
         for name, n in counts.items():
             if n and name in self.kern:   # not a form's count inside one
                 self.kern[name].setdefault("launches", n)
-        want = {k: steps * nonzero.get(k, 0) for k in counts}
+        want = {k: steps * nonzero.get(k, 0) + (once or {}).get(k, 0)
+                for k in counts}
         self.check(counts == want, f"{label}: launch counts {counts} != "
                    f"{want}")
 
@@ -845,6 +850,7 @@ class Smoke:
             tag = f"{W}x{H}x{D} {wall}"
             kv = m.keep_vel[1:-1, 1:-1, 1:-1]
             print(f"   {tag}: {int(m.solid.sum())} solid cells", flush=True)
+            self.check_tables(m, tag)
             a, c = diffusion_coeffs(W, H, D, 0.05, 2e-5)
             b = 1 if main else 2
             f, g = self.rand(rng, pad), self.rand(rng, pad)
@@ -945,6 +951,26 @@ class Smoke:
                 self.stream_bounds(f, g, kv, vel, m.fluid_i, n, True)
         self.stream_ragged(rng)
 
+    def check_tables(self, m, label):
+        """The keep passes' tables of the masks ``m`` (the ``keep_vel``
+        interior view and ``fluid_i``, nsw 1 and 2; those a run built are
+        read from the cache, the others built here by ``fst_march_table``):
+        byte for byte ``march_table_plain``'s of a host copy, and the same
+        count of flagged blocks."""
+        from fluid_simulation_tpu_torch.kernels import linsolve_stream as ls
+        torch = self.torch
+        for name, keep_i in (("keep_vel", m.keep_vel[1:-1, 1:-1, 1:-1]),
+                             ("fluid_i", m.fluid_i)):
+            for nsw in ls.KERNEL_NSW:
+                table, flagged = ls.march_table(keep_i, nsw)
+                plain = ls.march_table_plain(keep_i.cpu(), nsw)
+                got, want = int(flagged), int(plain.sum())
+                print(f"   {label} {name} nsw={nsw}: table flags {got} of "
+                      f"{table.numel()} blocks (plain {want})", flush=True)
+                self.check(torch.equal(table.cpu(), plain) and got == want,
+                           f"{label} {name} nsw={nsw}: march_table != "
+                           f"march_table_plain")
+
     def stream_ragged(self, rng):
         """Sweep 1 and the pass at nsw 1 and 2, keep (random 0/1 solids)
         and empty, b = 0..3 and both walls, at each ``RAGGED`` shape:
@@ -1011,10 +1037,14 @@ class Smoke:
                                 else None, device="cuda")
                 if sphere:
                     # the keep passes: 3 solves of 7 (after sweep 1), 2
-                    # projections of 7 and a one-sweep remainder
+                    # projections of 7 and a one-sweep remainder; their
+                    # tables (keep_vel at nsw 2, fluid_i at nsw 2 and 1)
+                    # built once, in the first step
                     self.run_path(wt, steps, label, rbgs_solve_stream_keep=3,
                                   project_stream_masked=2, advect_split=2,
-                                  pad_bounds_masked=4, rbgs_pass_keep=37)
+                                  pad_bounds_masked=4, rbgs_pass_keep=37,
+                                  once={"march_table": 3})
+                    self.check_tables(wt.masks, label)
                     self.check_scene(wt, label, twin=f"split {W}x{H}x{D}")
                 else:
                     self.run_path(wt, steps, label, rbgs_solve_stream=3,

@@ -32,7 +32,11 @@
 // red half multiplies by it only in planes that hold a black cell whose
 // keep is not 1 (rbgs_tile.cuh): so keep must hold only 0.0 and 1.0, as
 // every mask of scene/masks.py does (kernels/linsolve_stream.py says so
-// where it takes one).
+// where it takes one). A keep pass also takes a table of one byte a block
+// (fst_march_table, built once a mask and cached by
+// kernels/linsolve_stream.py): a block whose footprint holds no keep other
+// than 1, about 95 % of them around the bench's sphere, runs the keep-free
+// form, which loads no keep, and computes the same bits.
 //
 // Design: a 2.5-D z-march ("3.5-D blocking", Nguyen et al., SC'10). A block
 // owns a tile of output cells in (x, y) (32 x 32 at nsw 2, 32 x 16 at nsw
@@ -84,10 +88,13 @@
 // block of it (112,000 B), so two keep blocks fit the 196 KB carveout and
 // leave 60 KB of L1, as the empty form's do, where the 228 KB one left 28
 // (a keep pass at 512x256x256: 0.476 ms before, 0.427-0.432 after;
-// PERF.md K11).
+// PERF.md K11). A keep kernel holds the keep-free form beside its own, for
+// the blocks its table clears, in the same registers (a branch at a
+// block's entry, no spill); the table kernel takes 34 registers.
 //
 // The march itself is in rbgs_tile.cuh, which sweepcost.cu shares for the
-// sweep-cost variants; this file instantiates only its production form.
+// sweep-cost variants; this file instantiates only its production form and,
+// inside the keep kernels, the keep-free form (kCoalesced).
 //
 // Numerics: the neighbour sum is ((((x+ + x-) + y+) + y-) + z+) + z-, the
 // update (rhs + a*s) * (1/c), every operation rounded on its own
@@ -95,6 +102,54 @@
 // (kernels/linsolve_stream.py) bit for bit.
 
 #include "rbgs_tile.cuh"
+
+namespace {
+
+constexpr int kTableThreads = 256;
+
+// The table of the keep passes at depth NSW: block (bx, by, bz) of the
+// pass's grid reads its footprint, rows [y0, y0 + LY) and columns
+// [x0, x0 + L) of planes [zlo, zhi] clipped to the domain (a warp a row),
+// and writes 1 where any keep there is not 1. Once a mask: a pass reads
+// the table, never the mask, to choose its form.
+template <int NSW>
+__global__ void __launch_bounds__(kTableThreads)
+    march_table_kernel(const float* keep, int ksz, int ksy, int D, int H,
+                       int W, unsigned char* table) {
+  using G = March<NSW>;
+  const int x0 = blockIdx.x * kTx - G::M, y0 = blockIdx.y * kTy<NSW> - G::M;
+  const int zs = blockIdx.z * kChunk, ze = min(zs + kChunk, D);
+  const int zlo = max(zs - G::M, 0), zhi = min(ze + G::M - 1, D - 1);
+  const int xlo = max(x0, 0), nx = min(x0 + G::L, W) - xlo;
+  const int ylo = max(y0, 0), ny = min(y0 + G::LY, H) - ylo;
+  const int rows = ny * (zhi - zlo + 1);
+  bool solid = false;
+  for (int r = threadIdx.x / 32; r < rows; r += kTableThreads / 32) {
+    const int z = zlo + r / ny, y = ylo + r % ny;
+    const float* row = keep + static_cast<long>(z) * ksz +
+                       static_cast<long>(y) * ksy + xlo;
+    for (int x = threadIdx.x % 32; x < nx; x += 32)
+      solid |= row[x] != 1.0f;
+  }
+  solid = __syncthreads_or(solid);
+  if (threadIdx.x == 0)
+    table[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] =
+        solid;
+}
+
+template <int NSW>
+int launch_table(const void* keep, int ksz, int ksy, int D, int H, int W,
+                 void* table, void* stream) {
+  const dim3 grid(fst::cdiv(W, kTx), fst::cdiv(H, kTy<NSW>),
+                  fst::cdiv(D, kChunk));
+  march_table_kernel<NSW><<<grid, kTableThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(keep), ksz, ksy, D, H, W,
+      static_cast<unsigned char*>(table));
+  return fst::launch_status();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -108,26 +163,40 @@ int fst_rbgs_sweep1(const void* field, const void* rhs, int rsz, int rsy,
 }
 
 // One pass: the packed pre-keep carry -> the carry nsw (1 or 2) sweeps
-// later; keep (an interior view) or nullptr for an empty scene.
+// later; keep (an interior view) or nullptr for an empty scene. With keep,
+// table is fst_march_table's table of this keep view at this nsw.
 int fst_rbgs_pass(const void* fin, const void* rhs, int rsz, int rsy,
                   const void* keep, int ksz, int ksy, void* out, int D, int H,
                   int W, float a, float crec, int nsw, int neg_mask,
-                  void* stream) {
+                  const void* table, void* stream) {
   const bool k = keep != nullptr;
+  if (k && table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (nsw == 1)
     return k ? launch_march<1, true, false>(fin, rhs, rsz, rsy, keep, ksz,
                                             ksy, out, D, H, W, a, crec,
-                                            neg_mask, stream)
+                                            neg_mask, stream, table)
              : launch_march<1, false, false>(fin, rhs, rsz, rsy, keep, ksz,
                                              ksy, out, D, H, W, a, crec,
                                              neg_mask, stream);
   if (nsw == 2)
     return k ? launch_march<2, true, false>(fin, rhs, rsz, rsy, keep, ksz,
                                             ksy, out, D, H, W, a, crec,
-                                            neg_mask, stream)
+                                            neg_mask, stream, table)
              : launch_march<2, false, false>(fin, rhs, rsz, rsy, keep, ksz,
                                              ksy, out, D, H, W, a, crec,
                                              neg_mask, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The keep passes' table (rbgs_tile.cuh, "Keep-free blocks") of an interior
+// keep view at pass depth nsw (1 or 2): one byte a block of the pass's grid,
+// 1 where a cell of the block's footprint has a keep other than 1, else 0.
+int fst_march_table(const void* keep, int ksz, int ksy, int D, int H, int W,
+                    int nsw, void* table, void* stream) {
+  if (nsw == 1)
+    return launch_table<1>(keep, ksz, ksy, D, H, W, table, stream);
+  if (nsw == 2)
+    return launch_table<2>(keep, ksz, ksy, D, H, W, table, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

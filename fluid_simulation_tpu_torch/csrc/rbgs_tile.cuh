@@ -3,7 +3,8 @@
 // production kernels of rbgs_stream.cu and the sweep-cost variants of
 // sweepcost.cu. The Variant parameter removes one mechanism of the pass at a
 // time; rbgs_stream.cu instantiates only kFull, so the production kernel is
-// this code with every variant branch compiled out.
+// this code with every variant branch compiled out (the keep kernels also
+// run kCoalesced's Marcher in their keep-free blocks, below).
 //
 // The variants (sweepcost.cu says how they map onto the JAX probe's,
 // tools/exp_sweepcost.py:11-16). Each is deterministic: every cell of a
@@ -23,7 +24,8 @@
 //           both colours, u = (rhs + a*(6*u)) * (1/c) in each half-sweep,
 //           with the loads and the store as they are;
 //   kCoalesced  nothing removed: the keep forms' plane loads (fetch, land)
-//           in the empty pass, kFull's function.
+//           in the empty pass, kFull's function; the keep kernels' keep-free
+//           blocks run it.
 //
 // The march (kernels/linsolve_stream.py::march_pass is its NumPy
 // emulation, step for step, which the CPU tests hold to the plain passes).
@@ -88,6 +90,18 @@
 // keep_scalar, keep_vel and fluid_i so). The black half reads its red
 // neighbours pre-keep, as relax does, and needs no keep. Out of the domain
 // the ring holds zeros (or the padded field's ghosts, PADDED).
+//
+// Keep-free blocks. Most blocks of a keep pass load no cell whose keep is
+// not 1, so no plane of theirs is ever marked and the keep form computes
+// exactly the empty form's values there. A table of one byte a block
+// (PassArgs::table, built once a mask by rbgs_stream.cu's march_table
+// kernel) says whether any cell of the block's footprint, the ring planes'
+// L x LY cells of every plane it loads, [zlo, zhi], has a keep other than
+// 1; march_block reads its byte once at entry, and a block whose byte is 0
+// runs the keep-free Marcher on the keep forms' coalesced loads
+// (kCoalesced: no keep copy, no ballot, no __syncthreads_or), bit for bit
+// the keep form's, since a keep of 1 multiplies exactly. The march loop
+// itself has no branch on it.
 //
 // Plane loads. A quad a thread (read) puts a warp's lanes 16 B apart, so
 // each of its four loads of an operand spans ~20 sectors of several rows
@@ -204,6 +218,8 @@ struct PassArgs {
   int D, H, W;
   float a, crec;
   int neg_mask;
+  const unsigned char* table;   // KEEP: a block's byte, 0 where its
+                                // footprint's keep is 1 throughout
 };
 
 // one float from global to shared memory by cp.async (through the L1),
@@ -634,10 +650,23 @@ struct Marcher {
   }
 };
 
+// One block's march in one form: a block whose ring plane reaches past the
+// domain's x or y faces takes the splicing path (FACE).
+template <int NSW, bool KEEP, bool PADDED, int V>
+__device__ __forceinline__ void march(const PassArgs& args, int x0, int y0,
+                                      float* smem) {
+  using G = March<NSW>;
+  if (x0 < 0 || y0 < 0 || x0 + G::L > args.W || y0 + G::LY > args.H)
+    Marcher<NSW, KEEP, PADDED, V, true>(args, x0, y0, smem).run();
+  else
+    Marcher<NSW, KEEP, PADDED, V, false>(args, x0, y0, smem).run();
+}
+
 // PADDED: fin is the padded (D+2, H+2, W+2) field (sweep 1: its ghost cells
 // are loaded and read, never spliced). Otherwise fin is the packed pre-keep
 // carry. rhs and keep are interior (D, H, W) views with z/y strides and x
-// stride 1; out is packed.
+// stride 1; out is packed. With KEEP, a block whose table byte is 0 runs the
+// keep-free form (kCoalesced), whose values are the keep form's there.
 template <int NSW, bool KEEP, bool PADDED, int V>
 __device__ __forceinline__ void march_block(const PassArgs& args) {
   static_assert(V == kFull || (!KEEP && !PADDED),
@@ -646,10 +675,14 @@ __device__ __forceinline__ void march_block(const PassArgs& args) {
   extern __shared__ __align__(16) float smem[];
   const int x0 = blockIdx.x * kTx - G::M;
   const int y0 = blockIdx.y * kTy<NSW> - G::M;
-  if (x0 < 0 || y0 < 0 || x0 + G::L > args.W || y0 + G::LY > args.H)
-    Marcher<NSW, KEEP, PADDED, V, true>(args, x0, y0, smem).run();
-  else
-    Marcher<NSW, KEEP, PADDED, V, false>(args, x0, y0, smem).run();
+  if constexpr (KEEP) {
+    if (!args.table[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                    blockIdx.x]) {
+      march<NSW, false, PADDED, kCoalesced>(args, x0, y0, smem);
+      return;
+    }
+  }
+  march<NSW, KEEP, PADDED, V>(args, x0, y0, smem);
 }
 
 template <int NSW, bool KEEP, bool PADDED, int V = kFull>
@@ -695,7 +728,8 @@ int march_blocks(int* blocks) {
 template <int NSW, bool KEEP, bool PADDED, int V = kFull>
 int launch_march(const void* fin, const void* rhs, int rsz, int rsy,
                  const void* keep, int ksz, int ksy, void* out, int D, int H,
-                 int W, float a, float crec, int neg_mask, void* stream) {
+                 int W, float a, float crec, int neg_mask, void* stream,
+                 const void* table = nullptr) {
   const auto kernel = rbgs_march_kernel<NSW, KEEP, PADDED, V>;
   constexpr int smem = march_smem<NSW, KEEP, V>();
   const cudaError_t e = march_limit<NSW, KEEP, PADDED, V>();
@@ -703,7 +737,8 @@ int launch_march(const void* fin, const void* rhs, int rsz, int rsy,
   const PassArgs args{static_cast<const float*>(fin),
                       static_cast<const float*>(rhs), rsz, rsy,
                       static_cast<const float*>(keep), ksz, ksy,
-                      static_cast<float*>(out), D, H, W, a, crec, neg_mask};
+                      static_cast<float*>(out), D, H, W, a, crec, neg_mask,
+                      static_cast<const unsigned char*>(table)};
   const dim3 grid(fst::cdiv(W, kTx), fst::cdiv(H, kTy<NSW>),
                   fst::cdiv(D, kChunk));
   kernel<<<grid, March<NSW>::THREADS, smem,

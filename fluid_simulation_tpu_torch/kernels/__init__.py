@@ -85,9 +85,24 @@ which kernels carried it:
 - ``step_stats``             (kernels/stats.py)           one per step with
   either statistic on (``div_stats``, ``step_stats``): the density sum and
   the largest |divergence| in one pass over the fields
+- ``march_table``            (kernels/linsolve_stream.py) one per table of
+  the keep passes' keep-free blocks, built once a mask and depth: 3 in a
+  512x256x256 sphere tunnel's first step (``keep_vel`` at nsw 2,
+  ``fluid_i`` at nsw 2 and 1), none after
 
-These counters are the package's only global state.
+``MARCH_BLOCKS`` counts the blocks of those keep-form launches by the form
+each ran (``csrc/rbgs_tile.cuh``, "Keep-free blocks"): ``keep_form`` the
+blocks whose footprint holds a keep other than 1, ``keep_free`` the others.
+Each launch adds its table's count of flagged blocks, which
+``linsolve_stream.march_table`` keeps on the device beside its table; the
+counts reach the host only when the counter is read, so a launch reads
+nothing back.
+
+These counters, and the tables ``linsolve_stream.march_table`` caches, are
+the package's only global state.
 """
+
+from collections.abc import Mapping
 
 LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "project_masked": 0, "advect_split": 0, "pad_bounds": 0,
@@ -103,9 +118,59 @@ LAUNCHES = {"rbgs_solve": 0, "rbgs_solve_keep": 0, "project_empty": 0,
             "probe_add1": 0, "hbm_stream": 0, "sweepcost_pass": 0,
             "dma_stream": 0, "transpose": 0, "strided_copy": 0,
             "lerp_pass": 0, "rbgs_solve_mxu": 0, "lerpcost_pass": 0,
-            "step_stats": 0, "advect_compat": 0, "advect_fast": 0}
+            "step_stats": 0, "advect_compat": 0, "advect_fast": 0,
+            "march_table": 0}
+
+
+class _MarchBlocks(Mapping):
+    """``MARCH_BLOCKS``: a read-only ``{"keep_form": n, "keep_free": n}``
+    summed, when read, over the tables ``add`` was given. Past ``HELD``
+    tables (masks whose table is built anew at each call) it folds them
+    into host counts, one read back for ``HELD`` tables."""
+
+    HELD = 64
+
+    def __init__(self):
+        self._tables = {}          # id(flagged) -> [flagged, blocks, launches]
+        self._folded = {"keep_form": 0, "keep_free": 0}
+
+    def add(self, flagged, blocks: int) -> None:
+        """One launch over a table of ``blocks`` blocks, ``flagged`` (a
+        0-d tensor, left where it is) of them flagged."""
+        self._tables.setdefault(id(flagged), [flagged, blocks, 0])[2] += 1
+        if len(self._tables) > self.HELD:
+            self._folded = self._counts()
+            self._tables.clear()
+
+    def _counts(self):
+        form, free = self._folded["keep_form"], self._folded["keep_free"]
+        for flagged, blocks, launches in self._tables.values():
+            n = int(flagged)
+            form += launches * n
+            free += launches * (blocks - n)
+        return {"keep_form": form, "keep_free": free}
+
+    def __getitem__(self, key):
+        return self._counts()[key]
+
+    def __iter__(self):
+        return iter(("keep_form", "keep_free"))
+
+    def __len__(self):
+        return 2
+
+    def __repr__(self):
+        return repr(self._counts())
+
+    def clear(self) -> None:
+        self._tables.clear()
+        self._folded = {"keep_form": 0, "keep_free": 0}
+
+
+MARCH_BLOCKS = _MarchBlocks()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    MARCH_BLOCKS.clear()

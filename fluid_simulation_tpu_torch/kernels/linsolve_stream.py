@@ -37,13 +37,14 @@ fixes it by measurement on the TPU.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fluid_simulation_tpu_torch.kernels import LAUNCHES, _build
+from fluid_simulation_tpu_torch.kernels import LAUNCHES, MARCH_BLOCKS, _build
 from fluid_simulation_tpu_torch.ops.bounds import face_signs
 from fluid_simulation_tpu_torch.ops.linsolve import as_scalar, neighbor_sum
 from fluid_simulation_tpu_torch.scene.masks import red_parity
@@ -206,7 +207,9 @@ def passes(fpre, rhs_i, keep_i, b, a, c, n_sweeps, nsw, wall_mode):
     holds only 0.0 and 1.0: the kernel holds the keep of the cells a thread
     updates as one bit each, and multiplies by ``bit ? 1 :
     0``, which is the mask's own value only for those two (a value unchecked
-    here: a check would cost a pass over the mask and a sync a call)."""
+    here: a check would cost a pass over the mask and a sync a call). Its
+    passes read the table ``march_table`` builds once for ``keep_i`` at each
+    depth, at the first call, and caches."""
     spare = torch.empty_like(fpre)
 
     def one_pass(f, depth):
@@ -267,18 +270,118 @@ def _launch_sweep1(field, rhs_i, out, a, c):
 
 def _launch_pass(fin, rhs_i, keep_i, out, b, a, c, nsw, wall_mode):
     """One pass of ``nsw`` sweeps from ``fin`` into ``out`` (both packed);
-    a pass with a keep mask counts as ``rbgs_pass_keep``."""
+    a pass with a keep mask counts as ``rbgs_pass_keep``, and its blocks in
+    ``MARCH_BLOCKS`` by the form its table (``march_table``) gives them."""
     D, H, W = fin.shape
     dev = fin.get_device()
     rp, rsz, rsy = _build.mask_view("rbgs_pass", rhs_i, (D, H, W), dev)
-    kp, ksz, ksy = (None, 0, 0) if keep_i is None else _build.mask_view(
-        "rbgs_pass", keep_i, (D, H, W), dev)
+    kp, ksz, ksy, tp = None, 0, 0, None
+    if keep_i is not None:
+        kp, ksz, ksy = _build.mask_view("rbgs_pass", keep_i, (D, H, W), dev)
+        table, flagged = march_table(keep_i, nsw)
+        tp = _build.ptr(table)
     a32, crec = (float(x) for x in _consts(a, c, torch.float32))
     mask = _build.neg_mask([face_signs(b, wall_mode)])
     _build.launch("fst_rbgs_pass", dev, _build.ptr(fin), rp, rsz, rsy, kp,
-                  ksz, ksy, _build.ptr(out), D, H, W, a32, crec, nsw, mask)
+                  ksz, ksy, _build.ptr(out), D, H, W, a32, crec, nsw, mask,
+                  tp)
     if keep_i is not None:
         LAUNCHES["rbgs_pass_keep"] += 1
+        MARCH_BLOCKS.add(flagged, table.numel())
+
+
+# ---- The keep passes' table of keep-free blocks -------------------------
+#
+# A keep pass's block whose footprint (``march_footprint``) holds no keep
+# other than 1 runs the keep-free form (``csrc/rbgs_tile.cuh``, "Keep-free
+# blocks"), chosen once at its entry by its byte of a table: (gz, gy, gx)
+# uint8 over the pass's grid (``march_grid``), 1 where the footprint holds
+# such a keep. On the card one launch builds it (``fst_march_table``, a
+# block a tile, no temporary the size of the field) and one more counts its
+# flagged blocks on the device; both are kept for the life of the mask, and
+# nothing is read back.
+
+# (id of the view's base, storage offset, shape, strides, nsw) ->
+# (weak reference to the base, the base's version, table, flagged blocks)
+_TABLES: dict = {}
+
+
+def march_footprint(shape, nsw: int, bx: int, by: int, bz: int,
+                    chunk: int = MARCH_CHUNK):
+    """The cells of a (D, H, W) grid that block (bx, by, bz) of a pass of
+    ``nsw`` sweeps loads, as (z, y, x) slices: its ring planes' L x LY
+    cells from (x0, y0) on each plane [zlo, zhi] it loads, clipped to the
+    domain (``chunk`` output planes a block, as ``march_pass`` takes)."""
+    D, H, W = shape
+    M, L, LY, _, _ = march_geometry(nsw)
+    tx, ty = MARCH_TILE[nsw]
+    x0, y0, zs = bx * tx - M, by * ty - M, bz * chunk
+    zlo, zhi, _ = march_planes(D, zs, min(zs + chunk, D), nsw, False)
+    return (slice(zlo, zhi + 1), slice(max(y0, 0), min(y0 + LY, H)),
+            slice(max(x0, 0), min(x0 + L, W)))
+
+
+def march_table_plain(keep_i, nsw: int, chunk: int = MARCH_CHUNK):
+    """The keep passes' table in plain torch: (gz, gy, gx) uint8, 1 where
+    block (bx, by, bz)'s footprint holds a keep other than 1. It reduces a
+    z-range's planes to one plane, then a block row's rows to one row, so
+    no temporary is the size of the field."""
+    shape = tuple(keep_i.shape)
+    gx, gy, gz = march_grid(shape, nsw, chunk)
+    table = torch.zeros((gz, gy, gx), dtype=torch.uint8,
+                        device=keep_i.device)
+    for bz in range(gz):
+        zs, _, _ = march_footprint(shape, nsw, 0, 0, bz, chunk)
+        plane = (keep_i[zs] != 1).any(0)
+        for by in range(gy):
+            row = plane[march_footprint(shape, nsw, 0, by, bz, chunk)[1]]
+            row = row.any(0)
+            for bx in range(gx):
+                xs = march_footprint(shape, nsw, bx, by, bz, chunk)[2]
+                table[bz, by, bx] = bool(row[xs].any())
+    return table
+
+
+def march_table(keep_i, nsw: int):
+    """``(table, flagged)``: the keep passes' table of the interior keep
+    view ``keep_i`` at depth ``nsw`` (``fst_march_table`` on the card,
+    ``march_table_plain`` off it) and its count of flagged blocks, a 0-d
+    tensor beside it. Cached for the view's base tensor, held by a weak
+    reference, while the base's version (an in-place edit bumps it) and
+    the view's storage offset, shape, strides and ``nsw`` stay the same: a
+    mask that replaces it misses, even at the same address. An inference
+    tensor has no version, and may be edited in place under inference
+    mode, so its table is built anew at each call; ``build_masks`` makes
+    the tunnel's masks outside inference mode for that reason."""
+    base = keep_i if keep_i._base is None else keep_i._base
+    tracked = not keep_i.is_inference()      # no version counter to watch
+    key = (id(base), keep_i.storage_offset(), tuple(keep_i.shape),
+           keep_i.stride(), nsw)
+    hit = _TABLES.get(key) if tracked else None
+    if hit is not None and hit[0]() is base and hit[1] == keep_i._version:
+        return hit[2], hit[3]
+    if _build.on_card(keep_i):
+        gx, gy, gz = march_grid(tuple(keep_i.shape), nsw)
+        table = torch.empty((gz, gy, gx), dtype=torch.uint8,
+                            device=keep_i.device)
+        _launch_table(keep_i, nsw, table)
+    else:
+        table = march_table_plain(keep_i, nsw)
+    flagged = torch.count_nonzero(table)
+    if tracked:
+        _TABLES[key] = (weakref.ref(base, lambda _, k=key: _TABLES.pop(k,
+                                                                      None)),
+                        keep_i._version, table, flagged)
+    return table, flagged
+
+
+def _launch_table(keep_i, nsw, table):
+    D, H, W = keep_i.shape
+    dev = keep_i.get_device()
+    kp, ksz, ksy = _build.mask_view("march_table", keep_i, (D, H, W), dev)
+    _build.launch("fst_march_table", dev, kp, ksz, ksy, D, H, W, nsw,
+                  _build.ptr(table))
+    LAUNCHES["march_table"] += 1
 
 
 # ---- The pass kernel's plan, and a NumPy emulation of its march --------
@@ -351,7 +454,7 @@ def _unsplit(halves, y0, q):
 
 def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
                wall_mode: str = "reference", *, padded: bool = False,
-               variant: str = "full", chunk: int = MARCH_CHUNK):
+               variant: str = "full", chunk: int = MARCH_CHUNK, table=None):
     """The pass kernel's march in NumPy, block by block and step by step:
     the carry ``nsw`` sweeps later, as ``pass_plain`` (``padded``: the
     padded field after sweep 1, as ``sweep1_plain``; ``variant``: a
@@ -371,7 +474,11 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
     plane. Who loads which word is not modelled here: the keep forms'
     coalesced loads (a warp's 32 consecutive cells) land each cell in the
     word ``_split`` gives it, which ``tests/test_torch_stream.py`` holds
-    for them."""
+    for them.
+
+    With ``keep_i``, a block whose byte of ``table`` ((gz, gy, gx), by
+    default ``march_table_plain``'s at this ``chunk``) is 0
+    runs the keep-free form: its red half reads u without the keep bits."""
     tile = MARCH_TILE[nsw]
     M, L, LY, HW, R = march_geometry(nsw)
     f32 = np.float32
@@ -401,6 +508,9 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
         return win
 
     gx_, gy_, gz_ = march_grid((D, H, W), nsw, chunk)
+    if keep and table is None:
+        table = march_table_plain(torch.from_numpy(keep_i), nsw,
+                                  chunk).numpy()
     for bz in range(gz_):
         zs, ze = bz * chunk, min(bz * chunk + chunk, D)
         zlo, zhi, zend = march_planes(D, zs, ze, nsw, ghosts)
@@ -408,6 +518,7 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
             for bx in range(gx_):
                 x0, y0 = bx * tile[0] - M, by * tile[1] - M
                 face = face_block(x0, y0, H, W, nsw)
+                keep_form = keep and bool(table[bz, by, bx])
                 u = np.zeros((R, 2, LY, HW), f32)
                 rh = np.zeros((R, 2, LY, HW), f32)
                 kb = np.zeros((R, LY, HW), bool)    # black cells' keep bits
@@ -441,7 +552,7 @@ def march_pass(fin, rhs_i, keep_i, b: int, a: float, c: float, nsw: int,
                             new = (rh[s, p] + a * (f32(6.0) * own)) * crec
                             u[s, p] = np.where(mask, new, own)
                             continue
-                        red_keep = keep and p == 1
+                        red_keep = keep_form and p == 1
 
                         def other(t):     # the red half: post-keep
                             if red_keep:

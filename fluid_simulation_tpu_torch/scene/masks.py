@@ -42,13 +42,17 @@ class SceneMasks(NamedTuple):
         return tuple(self.fluid_i.shape)
 
 
+@torch.inference_mode(False)
 def build_masks(obstacles, dtype=torch.float32, device="cuda") -> SceneMasks:
     """Derive every solver mask from the padded obstacle field (1 = solid).
 
     ``obstacles`` (NumPy array or tensor) has padded shape
     ``(D+2, H+2, W+2)`` with a zero ghost shell. Every mask is 0/1, so it is
     built in float32 and cast to ``dtype`` exactly. The masks go to the card
-    unless ``device="cpu"`` asks for the host."""
+    unless ``device="cpu"`` asks for the host. They are never inference
+    tensors, even under ``torch.inference_mode``: a mask's version counter
+    is what lets the streamed keep passes keep its table
+    (``kernels/linsolve_stream.march_table``)."""
     obs = torch.as_tensor(np.asarray(obstacles, np.float32)
                           if not isinstance(obstacles, torch.Tensor)
                           else obstacles, dtype=torch.float32, device=device)

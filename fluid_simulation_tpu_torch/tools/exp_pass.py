@@ -12,7 +12,9 @@ carry, on an empty scene and with a keep mask. Each row is a chain
 production call); sweep 1 reads a padded field of 0.1 whatever ``c`` is.
 The keep mask is the interior of ``keep_vel`` of the bench's sphere at the
 bench's big grids (``scene.primitives.big_sphere``), elsewhere of a sphere
-of radius min(W, H, D)/4 at the centre.
+of radius min(W, H, D)/4 at the centre. A keep row runs the pass as the
+step does: the blocks its mask's table clears (``linsolve_stream.
+march_table``, built at the row's first call) take the keep-free form.
 
 A row prints its µs per call (``tools/_timing.replay_slope``: the chains
 of n and 3n calls each one captured graph, the best of 3 of

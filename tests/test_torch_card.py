@@ -84,6 +84,104 @@ def test_keep_pass_bitwise_to_plain(dhw, nsw, mask, b, a, c, wall_mode):
     assert _same_bits(got, want)
 
 
+def _halo_obstacles(nsw, axis, side):
+    """A padded obstacle field of 4 x 4 x 4 pass blocks at ``nsw`` whose one
+    solid cell, a black one, lies in block (1, 1, 1)'s halo and in no other
+    part of it: M = 2*nsw cells past its tile along ``axis`` on ``side``
+    (its footprint's last cell), inside its tile and z-range along the
+    other two. Returns (obstacles, the cell as (z, y, x) of the interior)."""
+    from fluid_simulation_tpu_torch.scene.primitives import empty_obstacles
+    M, chunk = 2 * nsw, ls.MARCH_CHUNK
+    tx, ty = ls.MARCH_TILE[nsw]
+    W, H, D = 3 * tx + 5, 3 * ty + 3, 3 * chunk + M + 1
+    lo = {"x": tx, "y": ty, "z": chunk}
+    span = {"x": tx, "y": ty, "z": chunk}
+    cell = {"x": tx + 3, "y": ty + 2, "z": chunk + 1}
+    cell[axis] = (lo[axis] - M if side == "low"
+                  else lo[axis] + span[axis] + M - 1)
+    if (cell["x"] + cell["y"] + cell["z"]) & 1:     # red: one cell over
+        cell["x" if axis == "y" else "y"] += 1
+    obs = empty_obstacles(W, H, D)
+    z, y, x = cell["z"], cell["y"], cell["x"]
+    obs[z + 1, y + 1, x + 1] = 1.0
+    return obs, (z, y, x)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("axis,side", [("x", "high"), ("y", "high"),
+                                       ("z", "high"), ("x", "low"),
+                                       ("y", "low"), ("z", "low")])
+@pytest.mark.parametrize("mask", ["keep_vel", "fluid_i"])
+def test_keep_pass_keep_free_blocks_bitwise_to_plain(nsw, axis, side, mask):
+    """The keep pass on a grid of keep-free and flagged blocks (one solid
+    only in a block's halo, M cells from its tile in x, y or z): its table
+    is ``march_table_plain``'s, with that block flagged and most blocks
+    not; the pass equals ``pass_plain`` bit for bit with the padded
+    ``keep_vel`` view and the contiguous ``fluid_i``; and ``MARCH_BLOCKS``
+    counts the table's flagged blocks as keep-form blocks, the rest as
+    keep-free."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from fluid_simulation_tpu_torch.kernels import LAUNCHES, MARCH_BLOCKS
+    from fluid_simulation_tpu_torch.scene.masks import build_masks
+    obs, _ = _halo_obstacles(nsw, axis, side)
+    m = build_masks(obs, device="cuda")
+    keep_i = (m.fluid_i if mask == "fluid_i" else
+              m.keep_vel[1:-1, 1:-1, 1:-1])
+    D, H, W = keep_i.shape
+    g = torch.Generator(device="cuda").manual_seed(D * H + W + nsw)
+    fpre = torch.randn((D, H, W), generator=g, device="cuda")
+    rhs_i = torch.randn((D + 2, H + 2, W + 2), generator=g,
+                        device="cuda")[1:-1, 1:-1, 1:-1]
+    table, flagged = ls.march_table(keep_i, nsw)
+    flagged = int(flagged)
+    plain = ls.march_table_plain(keep_i.cpu(), nsw)
+    assert torch.equal(table.cpu(), plain) and flagged == int(plain.sum())
+    assert table[1, 1, 1] and 0 < flagged < table.numel() // 4
+    before = dict(MARCH_BLOCKS, passes=LAUNCHES["rbgs_pass_keep"])
+    got = ls.sweep_pass(fpre, rhs_i, keep_i, 1, 0.7, 5.2, nsw)
+    assert LAUNCHES["rbgs_pass_keep"] == before["passes"] + 1
+    assert MARCH_BLOCKS["keep_form"] == before["keep_form"] + flagged
+    assert MARCH_BLOCKS["keep_free"] == (before["keep_free"] + table.numel()
+                                         - flagged)
+    want = ls.pass_plain(fpre, rhs_i, keep_i, 1, 0.7, 5.2, nsw)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.card
+def test_keep_pass_table_follows_add_obstacle():
+    """``WindTunnel.add_obstacle`` between two keep solves builds new
+    masks, which may take the old masks' addresses: the second solve reads
+    a table of its own mask (the new solid's blocks flagged) and both
+    solves equal the plain streamed solve bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from fluid_simulation_tpu_torch import SimParams, WindTunnel
+    obs, _ = _halo_obstacles(2, "x", "high")
+    D, H, W = (n - 2 for n in obs.shape)
+    wt = WindTunnel(SimParams(width=W, height=H, depth=D, mode="split"),
+                    obstacles=obs, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(29)
+    f, prev = (torch.randn(obs.shape, generator=g, device="cuda")
+               for _ in range(2))
+    tables = []
+    for cell in (None, (W - 3, H - 2, D - 1)):      # (x, y, z), 1-based
+        if cell is not None:
+            wt.add_obstacle(*cell)
+        keep = wt.masks.keep_vel
+        got = ls.rbgs_solve_stream(1, f, prev, 0.7, 5.2, 15, keep=keep)
+        want = ls.rbgs_solve_stream_plain(1, f.cpu(), prev.cpu(), 0.7, 5.2,
+                                          15, keep=keep.cpu())
+        assert _same_bits(got.cpu(), want)
+        table = ls.march_table(keep[1:-1, 1:-1, 1:-1], 2)[0].cpu()
+        assert torch.equal(
+            table, ls.march_table_plain(keep[1:-1, 1:-1, 1:-1].cpu(), 2))
+        tables.append(table)
+    assert not tables[0][-1, -1, -1] and tables[1][-1, -1, -1]
+    assert torch.equal(tables[0][:2], tables[1][:2])   # z-ranges off it
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("dhw", [(1, 1, 1), (3, 5, 7), (5, 3, 130),
                                  (2, 3, 600), (8, 8, 16)])

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from fluid_simulation_tpu_torch import SimParams, WindTunnel
 from fluid_simulation_tpu_torch.kernels import (
-    LAUNCHES, _build, advect_compat as k9, advect_fast as k20,
+    LAUNCHES, MARCH_BLOCKS, _build, advect_compat as k9, advect_fast as k20,
     advect_split as k3,
     bounds as k4, dma as k23d, hbm as k23h, lerpcost as k24, linsolve as k1,
     linsolve_blocked as k22c,
@@ -257,6 +257,14 @@ def stub_pass(fin, rhs_i, keep_i, out, b, a, c, nsw, wall_mode):
     out.copy_(k11.pass_plain(fin, rhs_i, keep_i, b, a, c, nsw, wall_mode))
 
 
+def stub_table(keep_i, nsw, table):
+    _mask(keep_i, keep_i.shape)
+    assert nsw in k11.KERNEL_NSW and table.dtype == torch.uint8
+    assert table.is_contiguous() and tuple(table.shape) == tuple(
+        reversed(k11.march_grid(tuple(keep_i.shape), nsw)))
+    table.copy_(k11.march_table_plain(keep_i, nsw))
+
+
 def stub_div(vx, vy, vz, fluid_i, rhs):
     for t in (vx, vy, vz):
         _operand(t, vx.shape)
@@ -433,6 +441,7 @@ def card(monkeypatch):
                             (k10, "_launch", stub_k10),
                             (k11, "_launch_sweep1", stub_sweep1),
                             (k11, "_launch_pass", stub_pass),
+                            (k11, "_launch_table", stub_table),
                             (k14, "_launch_div", stub_div),
                             (k14, "_launch_grad", stub_grad),
                             (k15, "_launch_packed", stub_sweep_packed),
@@ -599,7 +608,9 @@ def test_streamed_step_counts_its_keep_passes(card, monkeypatch, scene,
     512x256x256 sphere step's routing (acc 15, the route constant lowered
     to this grid) launches 37 passes, three diffusions of seven after sweep
     1 and two projections of seven and a one-sweep remainder, and every one
-    is the keep form; an empty step launches the same 37 and counts none."""
+    is the keep form, each with its mask's table (one block here, which
+    the sphere flags, so ``MARCH_BLOCKS`` counts 37 keep-form blocks); an
+    empty step launches the same 37 and counts none."""
     assert k11.streams((258, 258, 514)) and SimParams().acc == 15
     monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
     monkeypatch.setattr(k11, "_launch_pass", LAUNCH_PASS)
@@ -607,6 +618,7 @@ def test_streamed_step_counts_its_keep_passes(card, monkeypatch, scene,
 
     def launch(name, device, *args):
         assert name == "fst_rbgs_pass" and device == -1
+        assert (args[4] is None) == (args[15] is None)   # keep, its table
         passes.append((args[4] is not None, args[13]))   # keep, nsw
     monkeypatch.setattr(_build, "launch", launch)
     obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2) if scene else None
@@ -615,8 +627,40 @@ def test_streamed_step_counts_its_keep_passes(card, monkeypatch, scene,
     assert sorted(passes) == [(scene is not None, 1)] * 2 + [
         (scene is not None, 2)] * 35
     assert LAUNCHES["rbgs_pass_keep"] == keep_passes
+    assert MARCH_BLOCKS == {"keep_form": keep_passes, "keep_free": 0}
     assert LAUNCHES[("rbgs_solve_stream_keep" if scene else
                      "rbgs_solve_stream")] == 3
+
+
+@pytest.mark.parametrize("inference", [False, True])
+def test_streamed_steps_build_each_table_once(card, monkeypatch, inference):
+    """A streamed sphere tunnel's keep passes read three tables
+    (``keep_vel`` at nsw 2, ``fluid_i`` at nsw 2 and 1), built in its first
+    step and kept: the second step builds none, also where the tunnel is
+    built and stepped under ``torch.inference_mode``, since its masks are
+    no inference tensors. ``MARCH_BLOCKS`` counts both steps' 74 keep
+    passes (the launch itself stubbed), each of one block, which the
+    sphere flags."""
+    monkeypatch.setattr(k11, "STREAM_MIN_CELLS", W * H * D)
+    monkeypatch.setattr(k11, "_launch_pass", LAUNCH_PASS)
+    monkeypatch.setattr(_build, "launch", lambda *args: None)
+    built = []
+
+    def table(keep_i, nsw, out):
+        built.append(nsw)
+        stub_table(keep_i, nsw, out)
+    monkeypatch.setattr(k11, "_launch_table", table)
+    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2)
+    with torch.inference_mode(inference):
+        wt = WindTunnel(SimParams(width=W, height=H, depth=D, mode="split"),
+                        obstacles=obs, device=CPU)
+        wt.simulate(1)
+        first = sorted(built)
+        wt.simulate(1)
+    assert first == sorted(built) == [1, 2, 2]
+    assert wt.masks.keep_vel.is_inference() is False
+    assert LAUNCHES["rbgs_pass_keep"] == 74
+    assert MARCH_BLOCKS == {"keep_form": 74, "keep_free": 0}
 
 
 @pytest.mark.parametrize("scene", [None, SPHERE])
@@ -1255,10 +1299,11 @@ def test_wrapper_outputs_do_not_alias_inputs(card):
         assert torch.equal(got, want)
     assert torch.equal(out34, advect(2, g, vx, vy, vz, m, 0.05, "noslip"))
     # every wrapper once; the colour-packed solves' sweep 1 adds one K1
-    # keep solve and one blocked sweep; the keep passes' count is the
-    # launcher's, which the stubs replace
+    # keep solve and one blocked sweep; the keep passes' count and their
+    # tables' are the launchers', which the stubs replace
     assert LAUNCHES == {**{k: 1 for k in LAUNCHES}, "rbgs_solve_keep": 2,
-                        "rbgs_solve_blocked": 2, "rbgs_pass_keep": 0}
+                        "rbgs_solve_blocked": 2, "rbgs_pass_keep": 0,
+                        "march_table": 0}
 
 
 @pytest.mark.parametrize("masked", [False, True])

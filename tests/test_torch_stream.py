@@ -17,6 +17,7 @@ the step makes (ghost edges zero, velocities zero in solid cells).
 """
 
 import re
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -334,6 +335,187 @@ def test_march_variants_equal_their_plain_versions(variant, nsw):
     got = march_pass(f, rhs, None, 1, 1e-4, 1.0006, nsw, variant=variant,
                      chunk=4)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+def _brute_table(shape, nsw, cells, chunk=MARCH_CHUNK):
+    """The keep passes' table from its definition: every block whose
+    footprint (ring planes of L x LY cells from (bx*tx - M, by*ty - M), on
+    the planes [zs - M, ze + M - 1] it loads) holds one of ``cells``."""
+    D, H, W = shape
+    M, L, LY, _, _ = march_geometry(nsw)
+    tx, ty = MARCH_TILE[nsw]
+    gx, gy, gz = -(-W // tx), -(-H // ty), -(-D // chunk)
+    table = np.zeros((gz, gy, gx), np.uint8)
+    for z, y, x in cells:
+        for bz in range(gz):
+            zs, ze = bz * chunk, min(bz * chunk + chunk, D)
+            if not zs - M <= z <= ze + M - 1:
+                continue
+            for by in range(gy):
+                for bx in range(gx):
+                    if (bx * tx - M <= x < bx * tx - M + L
+                            and by * ty - M <= y < by * ty - M + LY):
+                        table[bz, by, bx] = 1
+    return table
+
+
+@pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("dims,chunk", [
+    ((13, 7, 5), MARCH_CHUNK), ((37, 21, 40), MARCH_CHUNK),
+    ((101, 70, 35), MARCH_CHUNK), ((70, 36, 11), 4)])
+def test_march_table_plain_is_the_footprint(dims, chunk, nsw):
+    """``march_table_plain`` (the keep passes' table off the card) flags
+    exactly the blocks whose footprint holds a keep other than 1, on grids
+    off the tiles and the z-range, with a few solids and a 0.5 among ones,
+    and flags none on a mask of ones."""
+    W, H, D = dims
+    rng = np.random.default_rng(sum(dims) + nsw)
+    keep = np.ones((D, H, W), np.float32)
+    cells = [tuple(int(rng.integers(n)) for n in (D, H, W))
+             for _ in range(5)]
+    for i, c in enumerate(cells):
+        keep[c] = 0.5 if i == 0 else 0.0
+    got = linsolve_stream.march_table_plain(_t(keep), nsw, chunk).numpy()
+    want = _brute_table((D, H, W), nsw, cells, chunk)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < want.size or want.size <= 4
+    none = linsolve_stream.march_table_plain(_t(np.ones_like(keep)), nsw,
+                                             chunk)
+    assert not none.any()
+
+
+def _halo_case(nsw, axis, side, chunk):
+    """A grid of 4 x 4 x 4 blocks whose one solid (keep 0, a black cell)
+    lies in block (1, 1, 1)'s halo alone, M = 2*nsw cells past its tile
+    along ``axis`` on ``side``, and inside its tile and z-range along the
+    other two axes. Returns (keep, the cell)."""
+    M = 2 * nsw
+    tx, ty = MARCH_TILE[nsw]
+    W, H, D = 3 * tx + 5, 3 * ty + 3, 3 * chunk + M + 1
+    cell = {"x": tx + 3, "y": ty + 2, "z": chunk + 1}
+    lo = {"x": tx, "y": ty, "z": chunk}
+    span = {"x": tx, "y": ty, "z": chunk}
+    cell[axis] = lo[axis] - M if side == "low" else lo[axis] + span[axis] \
+        + M - 1
+    z, y, x = cell["z"], cell["y"], cell["x"]
+    if (x + y + z) & 1:                  # red: move it in y (tile-side)
+        y += 1 if axis != "y" else 0
+        x += 1 if axis == "y" else 0
+    keep = np.ones((D, H, W), np.float32)
+    keep[z, y, x] = 0.0
+    return keep, (z, y, x)
+
+
+@pytest.mark.parametrize("nsw", [1, 2])
+@pytest.mark.parametrize("axis", ["x", "y", "z"])
+@pytest.mark.parametrize("side", ["low", "high"])
+def test_march_keep_free_blocks_equal_pass_plain(nsw, axis, side):
+    """The march with its table (``march_pass``): blocks whose byte is 0
+    run the keep-free form, the rest the keep form, and the pass is bit
+    for bit ``pass_plain``'s where one solid lies only in a block's halo,
+    M cells from its tile in x, y or z. That block is flagged, and it has
+    to be: with its byte cleared the pass differs."""
+    chunk = 4
+    keep, cell = _halo_case(nsw, axis, side, chunk)
+    D, H, W = keep.shape
+    tx, ty = MARCH_TILE[nsw]
+    owner = (cell[0] // chunk, cell[1] // ty, cell[2] // tx)
+    assert owner != (1, 1, 1) and sum(cell) % 2 == 0
+    rng = np.random.default_rng(nsw * 31 + len(axis + side))
+    f = rng.normal(size=(D, H, W)).astype(np.float32)
+    rhs = rng.normal(size=(D, H, W)).astype(np.float32)
+    table = linsolve_stream.march_table_plain(_t(keep), nsw, chunk).numpy()
+    np.testing.assert_array_equal(table,
+                                  _brute_table((D, H, W), nsw, [cell], chunk))
+    assert table[1, 1, 1] and table[owner] and table.sum() < table.size
+    want = pass_plain(_t(f), _t(rhs), _t(keep), 1, 0.7, 5.2, nsw).numpy()
+    got = march_pass(f, rhs, keep, 1, 0.7, 5.2, nsw, chunk=chunk)
+    np.testing.assert_array_equal(got, want)
+    cleared = table.copy()
+    cleared[1, 1, 1] = 0
+    wrong = march_pass(f, rhs, keep, 1, 0.7, 5.2, nsw, chunk=chunk,
+                       table=cleared)
+    assert not np.array_equal(wrong, want)
+
+
+def test_march_table_cache_follows_the_mask():
+    """``march_table`` keeps one table a mask view and depth while the
+    mask stays as it was: a new view of the same mask finds it, an
+    in-place edit of the mask builds it anew, a mask that dies takes its
+    tables with it, and an entry whose mask is another tensor is never
+    returned, whatever its key."""
+    tables = linsolve_stream._TABLES
+    keep = torch.ones((13, 40, 72))
+    view = lambda k: k[1:-1, 1:-1, 1:-1]           # noqa: E731
+    t1, n1 = linsolve_stream.march_table(view(keep), 2)
+    assert n1 == 0 and not t1.any()
+    assert linsolve_stream.march_table(view(keep), 2)[0] is t1
+    keep[5, 6, 7] = 0.0
+    t2, n2 = linsolve_stream.march_table(view(keep), 2)
+    assert t2 is not t1 and n2 == int(t2.sum()) > 0
+    np.testing.assert_array_equal(
+        t2.numpy(), _brute_table((11, 38, 70), 2, [(4, 5, 6)]))
+    t3, n3 = linsolve_stream.march_table(view(keep), 1)
+    assert t3.shape != t2.shape and n3 == int(t3.sum()) > 0
+    assert linsolve_stream.march_table(view(keep), 2)[0] is t2
+    mine = [k for k in tables if k[0] == id(keep)]
+    assert len(mine) == 2
+    del keep
+    assert not any(k in tables for k in mine)
+    # a new mask whose key an older mask's entry holds
+    new = torch.ones((13, 40, 72))
+    other = torch.zeros(1)
+    key = (id(new), view(new).storage_offset(), (11, 38, 70),
+           view(new).stride(), 2)
+    tables[key] = (weakref.ref(other), new._version, t2, n2)
+    t4, n4 = linsolve_stream.march_table(view(new), 2)
+    assert t4 is not t2 and n4 == 0
+    assert tables[key][0]() is new
+
+
+def test_march_table_rebuilds_an_inference_mask():
+    """A mask that is an inference tensor has no version to watch and may
+    be edited in place under inference mode: its table is built at each
+    call and follows the edit, and no entry of the cache holds it. The
+    count comes back as a 0-d tensor beside the table."""
+    with torch.inference_mode():
+        keep = torch.ones((11, 38, 70))
+        before = len(linsolve_stream._TABLES)
+        t1, n1 = linsolve_stream.march_table(keep, 2)
+        keep[4, 5, 6] = 0.0
+        t2, n2 = linsolve_stream.march_table(keep, 2)
+        assert len(linsolve_stream._TABLES) == before
+    assert isinstance(n1, torch.Tensor) and n1.dim() == 0
+    assert int(n1) == 0 and not t1.any()
+    assert int(n2) == int(t2.sum()) > 0
+    np.testing.assert_array_equal(
+        t2.numpy(), _brute_table((11, 38, 70), 2, [(4, 5, 6)]))
+
+
+def test_march_blocks_sums_its_tables_when_read():
+    """``MARCH_BLOCKS`` holds each table's count as it was given and sums
+    launches times counts when read; past ``HELD`` tables it folds them
+    into host counts and still reads the same sums; ``reset_launches``
+    empties it."""
+    from fluid_simulation_tpu_torch.kernels import (
+        MARCH_BLOCKS, reset_launches)
+    reset_launches()
+    try:
+        three = torch.tensor(3)
+        for _ in range(2):
+            MARCH_BLOCKS.add(three, 10)
+        assert MARCH_BLOCKS == {"keep_form": 6, "keep_free": 14}
+        n = MARCH_BLOCKS.HELD + 5
+        for i in range(n):
+            MARCH_BLOCKS.add(torch.tensor(i % 2), 4)
+        odd = n // 2
+        assert len(MARCH_BLOCKS._tables) <= MARCH_BLOCKS.HELD
+        assert dict(MARCH_BLOCKS) == {"keep_form": 6 + odd,
+                                      "keep_free": 14 + 4 * n - odd}
+        reset_launches()
+        assert dict(MARCH_BLOCKS) == {"keep_form": 0, "keep_free": 0}
+    finally:
+        reset_launches()
 
 
 def test_march_plan_is_the_kernels():
